@@ -1,0 +1,134 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in `csrc/` compile with `nvcc` into one shared library with a
+plain C interface, loaded with `ctypes`. The library is cached under
+`<repo>/build/` by a hash of the sources and flags, so only a changed source
+rebuilds. Nothing here runs at import: the first wrapper that launches a
+kernel on a CUDA tensor calls `lib()`, which builds if needed.
+
+Every wrapper adds one to its entry of `launch_counts` where it launches its
+kernel, and nowhere else, so a run can show which kernels its path reached.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# kernel name -> launches since the last reset (kernels 1 to 4 of the port)
+KERNELS = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
+           "conv3x3_bn_relu")
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PILLAR_ARGS = [_I] + [_P] * 9 + [_I] * 10 + [_P]
+_SIGNATURES = {
+    "cmt_pillar_conv_kb9": _PILLAR_ARGS,
+    "cmt_pillar_conv_kb1": _PILLAR_ARGS,
+    "cmt_pillar_occ_fold": [_P] * 3 + [_I] * 8 + [_P],
+    "cmt_flash_attention_packed": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
+    "cmt_conv3x3_bn_relu": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def count(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def sources() -> Sequence[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libcmtcoop_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile `csrc/*.cu` into the cached shared library; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [str(p) for p in sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error (cudaGetLastError)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def ptr(t) -> Optional[int]:
+    """Device pointer of a tensor (None -> NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]

@@ -1,0 +1,158 @@
+"""Model presets: the TUMTraf operating points and the tiny smoke preset of
+cmtcoop_tpu/configs/presets.py, copied so the port depends on no module of
+the JAX package. tests/test_torch_weights.py holds every preset here equal
+to its JAX counterpart, field by field.
+
+Each preset is built from (domain, modality); the reference's mmcv configs
+are projects/configs/CMTCoop_TUMTraf/{camera,lidar,fusion}/{vehicle,infra,
+coop}.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+TUMTRAF_CLASSES = (
+    "CAR", "TRAILER", "TRUCK", "VAN", "PEDESTRIAN", "BUS", "BICYCLE")
+
+
+@dataclasses.dataclass
+class Preset:
+    name: str
+    domain: str                 # vehicle | infrastructure | coop
+    modality: str               # camera | lidar | fusion
+    class_names: Tuple[str, ...]
+    tasks: Tuple[Tuple[str, ...], ...]
+    pc_range: Tuple[float, ...]
+    voxel_size: Tuple[float, float, float]
+    grid_size: Tuple[int, int, int]
+    num_views: int              # cameras per agent
+    img_size: Tuple[int, int]   # (H, W) after ida + pad
+    max_points: int = 300000
+    max_voxels_train: int = 120000
+    max_voxels_eval: int = 160000
+    max_gt: int = 128
+    dn_groups: int = 5
+    total_epochs: int = 20
+    base_lr: float = 1e-4
+    samples_per_gpu: int = 1
+    # dataset
+    dataset: str = "a9coop"     # a9coop | a9nusc | a9kitti | nuscenes
+    ann_prefix: str = "a9_nusc_coop_infos"
+    img_norm_mean: Tuple[float, float, float] = (103.530, 116.280, 123.675)
+    img_norm_std: Tuple[float, float, float] = (57.375, 57.120, 58.395)
+    ida_resize_lim: Tuple[float, float] = (0.94, 1.25)
+    ida_final_dim: Tuple[int, int] = (640, 1600)
+    # image backbone: "V-*" = VoVNet spec, "r{depth}" = ResNet
+    img_spec: str = "V-99-eSE"
+    img_out_features: Tuple[str, ...] = ("stage4", "stage5")
+    tiny: bool = False
+
+    @property
+    def use_lidar(self) -> bool:
+        return self.modality in ("lidar", "fusion")
+
+    @property
+    def use_camera(self) -> bool:
+        return self.modality in ("camera", "fusion")
+
+    @property
+    def agents(self) -> Tuple[str, ...]:
+        if self.domain == "coop":
+            return ("vehicle", "infrastructure")
+        return (self.domain,)
+
+    def extractor_kwargs(self, train: bool = False) -> Dict[str, Any]:
+        out = dict(
+            voxel_size=self.voxel_size,
+            pc_range=self.pc_range,
+            grid_size=self.grid_size,
+            max_voxels=(self.max_voxels_train if train
+                        else self.max_voxels_eval),
+            img_spec=self.img_spec,
+            img_out_features=self.img_out_features,
+        )
+        if self.tiny:
+            out.update(
+                sparse_base_channels=8,
+                sparse_channels=((8, 8, 8), (8, 8, 16), (16, 16, 16),
+                                 (16, 16)),
+                sparse_out_channels=16,
+                sparse_stage_caps=(128,) * 4,
+                pillar_caps=(128,) * 4,
+                second_channels=(16, 32), second_layers=(1, 1),
+                fpn_channels=(16, 16), img_spec="V-19-slim-eSE",
+                neck_out_channels=32)
+        return out
+
+    def head_kwargs(self) -> Dict[str, Any]:
+        out = dict(
+            tasks=self.tasks,
+            max_gt=self.max_gt,
+            dn_groups=self.dn_groups,
+        )
+        if self.tiny:
+            out.update(num_query=24, hidden_dim=32, in_channels=32,
+                       depth_num=8, num_decoder_layers=2, num_heads=4,
+                       feedforward_channels=64)
+        return out
+
+
+def tumtraf_preset(domain: str, modality: str, **over) -> Preset:
+    """TUMTraf presets (coop config:1-30): pc [-72..72]x[-8..0] @ voxel
+    (0.1, 0.1, 0.2) -> grid 1440x1440x40, ida final (640, 1600)."""
+    base = dict(
+        name=f"cmt_{modality}_{domain}_tumtraf",
+        domain=domain, modality=modality,
+        class_names=TUMTRAF_CLASSES, tasks=(TUMTRAF_CLASSES,),
+        pc_range=(-72.0, -72.0, -8.0, 72.0, 72.0, 0.0),
+        voxel_size=(0.1, 0.1, 0.2), grid_size=(1440, 1440, 40),
+        num_views=1 if domain == "vehicle" else 3,
+        img_size=(640, 1600),
+        dataset="a9coop" if domain == "coop" else "a9nusc",
+        ann_prefix=("a9_nusc_coop_infos" if domain == "coop"
+                    else "a9_nusc_infos"),
+    )
+    base.update(over)
+    return Preset(**base)
+
+
+def tiny_preset(**over) -> Preset:
+    """Miniature preset for smoke tests -- not a reference config."""
+    base = dict(
+        name="cmt_lidar_vehicle_tiny",
+        domain="vehicle", modality="lidar",
+        class_names=("CAR",), tasks=(("CAR",),),
+        pc_range=(-8.0, -8.0, -5.0, 8.0, 8.0, 5.0),
+        voxel_size=(1.0, 1.0, 0.25), grid_size=(16, 16, 40),
+        num_views=1, img_size=(64, 128),
+        max_points=1024, max_voxels_train=128, max_voxels_eval=128,
+        max_gt=8, dn_groups=2, total_epochs=1,
+        dataset="a9nusc", ann_prefix="a9_nusc_infos",
+        tiny=True,
+    )
+    base.update(over)
+    return Preset(**base)
+
+
+def get_preset(name: str) -> Preset:
+    return PRESETS[name]
+
+
+PRESETS: Dict[str, Preset] = {
+    p.name: p for p in [tumtraf_preset(dom, mod)
+                        for dom in ("vehicle", "infrastructure", "coop")
+                        for mod in ("camera", "lidar", "fusion")]
+    + [tiny_preset()]}
+
+# The small cooperative LiDAR detector of the port's parity checks (the CPU
+# tests against the JAX package, and the GPU-vs-CPU phase of chip_smoke.py):
+# a 2-stage pillar encoder, a 16x16 BEV (256 memory tokens per agent) and 2
+# decoder layers. `tiny_preset(**SMALL_COOP_PRESET)` is its preset.
+SMALL_COOP_PRESET = dict(domain="coop", pc_range=(-16, -16, -5, 16, 16, 5),
+                         voxel_size=(1, 1, 0.25), grid_size=(32, 32, 40))
+SMALL_COOP_EXTRACTOR = dict(sparse_base_channels=8,
+                            sparse_channels=((8, 16), (16,)),
+                            sparse_out_channels=16, pillar_caps=(128, 128),
+                            fpn_channels=(16, 16))
+SMALL_COOP_HEAD = dict(downsample_scale=2)

@@ -1,0 +1,148 @@
+"""CMT detectors, eval, LiDAR branch (counterpart of
+cmtcoop_tpu/models/detector.py).
+
+Batch dicts as in the JAX package: `points` (B, N, 5) float32 zero-padded,
+`points_mask` (B, N) bool; cooperative batches carry `vehicle_` and
+`infrastructure_` prefixes.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from cmtcoop_tpu_torch.models.cmt_head import CmtHead
+from cmtcoop_tpu_torch.models.pillar_encoder import PillarSparseEncoder
+from cmtcoop_tpu_torch.models.second import SECOND, SECONDFPN
+from cmtcoop_tpu_torch.ops.pillars import pillarize
+
+# FeatureExtractor settings of the camera branch and of the gather encoder,
+# which this package does not port yet: presets carry them, so they are
+# accepted and must not select those paths.
+NOT_PORTED_KEYS = ("img_spec", "img_out_features", "neck_out_channels",
+                   "use_grid_mask", "img_impl", "sparse_stage_caps")
+
+
+class FeatureExtractor(nn.Module):
+    """Per-agent LiDAR feature extractor: pillarize -> PillarSparseEncoder
+    -> SECOND -> SECONDFPN, giving the (B, H/8, W/8, 512) BEV map. State
+    keys `pts_middle_encoder.*`, `pts_backbone.*`, `pts_neck.*`."""
+
+    def __init__(self, use_lidar: bool = True, use_camera: bool = False,
+                 voxel_size: Tuple[float, float, float] = (0.1, 0.1, 0.2),
+                 pc_range: Sequence[float] = (-72.0, -72.0, -8.0,
+                                              72.0, 72.0, 0.0),
+                 grid_size: Tuple[int, int, int] = (1440, 1440, 40),
+                 max_points_per_voxel: int = 10, max_voxels: int = 120000,
+                 sparse_base_channels: int = 16,
+                 sparse_channels: Sequence[Sequence[int]] = (
+                     (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)),
+                 sparse_out_channels: int = 128,
+                 encoder_impl: str = "pillar",
+                 pillar_caps: Sequence[int] = (38400, 40960, 24064, 11264),
+                 second_channels: Sequence[int] = (128, 256),
+                 second_layers: Sequence[int] = (5, 5),
+                 fpn_channels: Sequence[int] = (256, 256),
+                 compute_dtype=torch.float32, **not_ported):
+        super().__init__()
+        unknown = set(not_ported) - set(NOT_PORTED_KEYS)
+        if unknown:
+            raise TypeError(f"unexpected extractor settings {sorted(unknown)}")
+        if use_camera or not use_lidar or encoder_impl != "pillar":
+            raise NotImplementedError(
+                "only the LiDAR branch with the pillar encoder is ported")
+        self.voxel_size = tuple(voxel_size)
+        self.pc_range = tuple(pc_range)
+        self.grid_size = tuple(grid_size)
+        self.max_points_per_voxel = max_points_per_voxel
+        self.max_voxels = max_voxels
+        self.pillar_caps = tuple(pillar_caps)
+        self.compute_dtype = compute_dtype
+        z = grid_size[2] + 1
+        self.pts_middle_encoder = PillarSparseEncoder(
+            5, (z, grid_size[1], grid_size[0]), sparse_base_channels,
+            sparse_channels, sparse_out_channels, pillar_caps)
+        levels = len(sparse_channels)
+        z_out = z
+        for zp in (1, 1, 0)[:levels - 1]:
+            z_out = (z_out + 2 * zp - 3) // 2 + 1
+        z_out = (z_out - 3) // 2 + 1
+        self.pts_backbone = SECOND(sparse_out_channels * z_out,
+                                   second_channels, second_layers)
+        self.pts_neck = SECONDFPN(second_channels, fpn_channels)
+
+    def pillarize(self, points, points_mask, return_stats: bool = False):
+        """One sample's cloud -> pillars, with this extractor's settings."""
+        return pillarize(points, points_mask, voxel_size=self.voxel_size,
+                         pc_range=self.pc_range, grid_size=self.grid_size,
+                         max_points=self.max_points_per_voxel,
+                         max_voxels=self.max_voxels,
+                         max_pillars=self.pillar_caps[0],
+                         return_stats=return_stats)
+
+    def extract_pts_feat(self, points, points_mask) -> torch.Tensor:
+        bev = torch.stack([
+            self.pts_middle_encoder(*self.pillarize(p, m),
+                                    dtype=self.compute_dtype)
+            for p, m in zip(points, points_mask)])
+        return self.pts_neck(self.pts_backbone(bev))
+
+    def extract(self, batch: Dict[str, torch.Tensor],
+                prefix: str = "") -> torch.Tensor:
+        return self.extract_pts_feat(batch[prefix + "points"],
+                                     batch[prefix + "points_mask"])
+
+    def forward(self, batch, prefix: str = ""):
+        return self.extract(batch, prefix)
+
+
+def _head(ek: Dict, hk: Dict, compute_dtype) -> CmtHead:
+    hk = dict(hk)
+    hk.setdefault("in_channels", 512)
+    return CmtHead(pc_range=ek.get("pc_range", (-72.0, -72.0, -8.0,
+                                                72.0, 72.0, 0.0)),
+                   grid_size=tuple(ek.get("grid_size", (1440, 1440))[:2]),
+                   compute_dtype=compute_dtype, **hk)
+
+
+class CmtDetector(FeatureExtractor):
+    """Single-agent detector: the extractor's modules at the top level (as
+    in the reference) + `pts_bbox_head`."""
+
+    def __init__(self, use_lidar: bool = True, use_camera: bool = False,
+                 extractor_kwargs=None, head_kwargs=None,
+                 compute_dtype=torch.float32):
+        ek = dict(extractor_kwargs or {})
+        super().__init__(use_lidar, use_camera, compute_dtype=compute_dtype,
+                         **ek)
+        self.pts_bbox_head = _head(ek, head_kwargs or {}, compute_dtype)
+
+    def forward(self, batch):
+        return self.pts_bbox_head([self.extract(batch)])
+
+
+class CmtCoopDetector(nn.Module):
+    """Cooperative detector: per-agent extractors (`vehicle_model`,
+    `infrastructure_model`) + the shared head with decoder-output max
+    fusion. `agents` selects the live agents; with one the head degrades to
+    the single-agent path."""
+
+    def __init__(self, use_lidar: bool = True, use_camera: bool = False,
+                 agents: Tuple[str, ...] = ("vehicle", "infrastructure"),
+                 extractor_kwargs=None, head_kwargs=None,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        ek = dict(extractor_kwargs or {})
+        self.agents = tuple(agents)
+        for a in self.agents:
+            if a not in ("vehicle", "infrastructure"):
+                raise ValueError(f"unknown agent {a!r}")
+            self.add_module(f"{a}_model", FeatureExtractor(
+                use_lidar, use_camera, compute_dtype=compute_dtype, **ek))
+        self.pts_bbox_head = _head(ek, head_kwargs or {}, compute_dtype)
+
+    def forward(self, batch):
+        bevs = [getattr(self, f"{a}_model").extract(batch, f"{a}_")
+                for a in self.agents]
+        return self.pts_bbox_head(bevs)

@@ -1,0 +1,137 @@
+"""Pillar-dense sparse voxel encoder, eval flow (counterpart of
+`PillarSparseEncoder` in cmtcoop_tpu/models/pillar_encoder.py).
+
+The same function as mmdet3d's SparseEncoder (submanifold basic blocks,
+strided down convs, `conv_out`), on sparse BEV pillars carrying dense z
+tiles. Every convolution is one `fused_pillar_conv` (conv + folded BN +
+residual + ReLU + occupancy). State keys follow the reference
+(`conv_input.0.weight` in spconv's (O, kz, ky, kx, I) layout, `conv_input.1`
+BN, `encoder_layers.encoder_layer{i}.{j}.conv1/norm1/conv2/norm2`, the down
+conv at index n_blocks, `conv_out.0/1`).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from cmtcoop_tpu_torch.models.layers import BatchNorm
+from cmtcoop_tpu_torch.ops import pillars as pu
+from cmtcoop_tpu_torch.ops.pillar_fused import fused_pillar_conv
+
+BN_EPS = 1e-3  # MaskedBatchNorm
+DOWN_ZPADS = (1, 1, 0)
+
+
+class SparseConvWeight(nn.Module):
+    """An spconv SubMConv3d / SparseConv3d weight, (O, kz, ky, kx, I)."""
+
+    def __init__(self, cin: int, cout: int, k: Tuple[int, int, int]):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, *k, cin))
+
+    def kernel(self) -> torch.Tensor:
+        """(K = kz*ky*kx, I, O), z-major: the fused conv's layout."""
+        w = self.weight
+        return w.permute(1, 2, 3, 4, 0).reshape(-1, w.shape[-1], w.shape[0])
+
+
+def _conv_bn(cin: int, cout: int, k=(3, 3, 3)) -> nn.Sequential:
+    return nn.Sequential(SparseConvWeight(cin, cout, k), BatchNorm(cout,
+                                                                   BN_EPS))
+
+
+class SparseBasicBlock(nn.Module):
+    """Submanifold basic block: conv1/norm1/ReLU, conv2/norm2, +identity,
+    ReLU, all on the same active sites."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = SparseConvWeight(c, c, (3, 3, 3))
+        self.norm1 = BatchNorm(c, BN_EPS)
+        self.conv2 = SparseConvWeight(c, c, (3, 3, 3))
+        self.norm2 = BatchNorm(c, BN_EPS)
+
+    def forward(self, x, nbr, occ):
+        s1, b1 = self.norm1.fold()
+        y = fused_pillar_conv(x, nbr, self.conv1.kernel(), scale=s1, bias=b1,
+                              occ_out=occ, relu=True)
+        s2, b2 = self.norm2.fold()
+        return fused_pillar_conv(y, nbr, self.conv2.kernel(), scale=s2,
+                                 bias=b2, occ_out=occ, residual=x, relu=True)
+
+
+class PillarSparseEncoder(nn.Module):
+    """Pillars of one sample -> dense BEV (H/8, W/8, C_out * Z_out)."""
+
+    def __init__(self, in_channels: int = 5,
+                 sparse_shape: Tuple[int, int, int] = (41, 1440, 1440),
+                 base_channels: int = 16,
+                 encoder_channels: Sequence[Sequence[int]] = (
+                     (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)),
+                 output_channels: int = 128,
+                 pillar_caps: Sequence[int] = (38400, 40960, 24064, 11264)):
+        super().__init__()
+        self.sparse_shape = tuple(sparse_shape)
+        self.encoder_channels = tuple(tuple(c) for c in encoder_channels)
+        self.pillar_caps = tuple(pillar_caps)
+        self.conv_input = _conv_bn(in_channels, base_channels)
+        self.encoder_layers = nn.Module()
+        n_stages = len(self.encoder_channels)
+        cin = base_channels
+        for i, blocks in enumerate(self.encoder_channels):
+            ch = blocks[0]
+            n_sbb = len(blocks) - (0 if i == n_stages - 1 else 1)
+            mods = [SparseBasicBlock(ch) for _ in range(n_sbb)]
+            if i != n_stages - 1:
+                mods.append(_conv_bn(ch, blocks[-1]))
+            self.encoder_layers.add_module(f"encoder_layer{i + 1}",
+                                           nn.Sequential(*mods))
+            cin = blocks[-1]
+        self.conv_out = _conv_bn(cin, output_channels, (3, 1, 1))
+
+    def forward(self, pcoords, pmask, occ, feats, dtype=torch.float32):
+        """One sample's pillars (from `pillarize`) -> (H', W', C*Z') in
+        `dtype`, channels in torch's `view(N, C*D, H, W)` order."""
+        d, h, w = self.sparse_shape
+        grid = pu.PillarGrid(pcoords, pmask, (h, w), d)
+        x = feats.to(dtype)
+        nbr = pu.pillar_neighbor_map(grid)
+        s, b = self.conv_input[1].fold()
+        x = fused_pillar_conv(x, nbr, self.conv_input[0].kernel(), scale=s,
+                              bias=b, occ_out=occ, relu=True)
+        n_stages = len(self.encoder_channels)
+        for i in range(n_stages):
+            layer = getattr(self.encoder_layers, f"encoder_layer{i + 1}")
+            mods = list(layer)
+            down = mods.pop() if i != n_stages - 1 else None
+            for blk in mods:
+                x = blk(x, nbr, occ)
+            if down is None:
+                continue
+            cap = self.pillar_caps[min(i + 1, len(self.pillar_caps) - 1)]
+            out_grid = pu.pillar_downsample_grid(grid, cap)
+            nbr_dn = pu.pillar_conv_neighbor_map(grid, out_grid)
+            zp = DOWN_ZPADS[i]
+            s, b = down[1].fold()
+            x, occ = fused_pillar_conv(
+                x, nbr_dn, down[0].kernel(), z_stride=2, z_pad=zp, scale=s,
+                bias=b, relu=True, occ_in=occ, fold_occ=True)
+            grid = out_grid
+            nbr = pu.pillar_neighbor_map(grid)
+
+        # conv_out: kernel (3, 1, 1), stride (2, 1, 1), pad 0 over the BEV
+        # identity map
+        ident = pu.identity_map(grid)
+        occ_out = pu.occ_downsample(occ, ident, 3, 2, 0)
+        s, b = self.conv_out[1].fold()
+        x = fused_pillar_conv(x, ident, self.conv_out[0].kernel(), kz=3,
+                              z_stride=2, z_pad=0, scale=s, bias=b,
+                              occ_out=occ_out, relu=True)
+        dense = pu.pillars_to_dense(
+            pu.PillarGrid(grid.coords, grid.mask, grid.hw, x.shape[1]), x)
+        hh, ww, zc = dense.shape
+        zf = x.shape[1]
+        return dense.reshape(hh, ww, zf, zc // zf).transpose(2, 3).reshape(
+            hh, ww, zc)

@@ -1,0 +1,160 @@
+"""Where the time of the port's main path goes, read from one
+`torch.profiler` trace on the card:
+
+    python -m cmtcoop_tpu_torch.profile_path [--out DIR]
+
+Builds the full-width main path (main_path.py), runs one frame to warm up,
+then traces 3 frames. From that one trace it reads, per frame:
+
+- `frame_ms`: the host span of a frame, from its start to its
+  synchronisation, profiler on (its per-op host cost lengthens the frame,
+  so `untraced_frame_ms`, the mean of as many frames timed on the host
+  clock just before the trace, is printed beside it);
+- `device_busy_ms` and `idle_share`: the union of the device's kernel, copy
+  and memset intervals inside the frame spans, and the share of the spans
+  it leaves idle;
+- `stage_device_ms`: the device time of each stage, each device op charged
+  to the stage whose host span launched it (`other`: the query embedding,
+  the fusion and the decode);
+- `top_kernels_ms`: the device time of the busiest kernels by name.
+
+It prints the summary as JSON and writes it, with the Chrome trace, to
+`--out` (default `build/profile/` in the checkout).
+"""
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import subprocess
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from cmtcoop_tpu_torch import main_path
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# host span name -> (module attribute path, method), per agent or on the head
+AGENT_STAGES = {"pillarize": ("", "pillarize"),
+                "pillar encoder": ("pts_middle_encoder", "forward"),
+                "SECOND": ("pts_backbone", "forward"),
+                "FPN": ("pts_neck", "forward")}
+HEAD_STAGES = {"head memory": "build_memory", "decoder": "run_decoder",
+               "task heads": "run_task_heads"}
+STAGES = tuple(AGENT_STAGES) + tuple(HEAD_STAGES)
+N_FRAMES = 3
+
+
+def _spanned(name, fn):
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def instrument(model) -> None:
+    """Wrap each stage's entry of a coop detector in a named host span. Only
+    instance attributes change; what the model computes does not."""
+    for agent in model.agents:
+        ext = getattr(model, f"{agent}_model")
+        for name, (sub, method) in AGENT_STAGES.items():
+            obj = getattr(ext, sub) if sub else ext
+            setattr(obj, method, _spanned(name, getattr(obj, method)))
+    head = model.pts_bbox_head
+    for name, method in HEAD_STAGES.items():
+        setattr(head, method, _spanned(name, getattr(head, method)))
+
+
+def _union_ms(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def summarize(trace: dict, n_frames: int) -> dict:
+    """Per-frame numbers from a Chrome trace of `n_frames` frames, each
+    inside a host span named `frame` (times in the trace are us)."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    frames = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                    if e["name"] == "frame")
+    if len(frames) != n_frames:
+        raise ValueError(f"trace holds {len(frames)} frame spans, not "
+                         f"{n_frames}")
+    stages = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in spans
+              if e["name"] in STAGES]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in LAUNCH_CATS
+                and "correlation" in e.get("args", {})}
+    starts = [f[0] for f in frames]
+    busy, stage_us, kernel_us = [], defaultdict(float), defaultdict(float)
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i < 0 or e["ts"] >= frames[i][1]:
+            continue  # outside the traced frames
+        busy.append((e["ts"], min(e["ts"] + e["dur"], frames[i][1])))
+        t = launched.get(e.get("args", {}).get("correlation"))
+        owners = [s for s in stages if t is not None and s[0] <= t < s[1]]
+        owner = min(owners, key=lambda s: s[1] - s[0])[2] if owners \
+            else "other"
+        stage_us[owner] += e["dur"]
+        kernel_us[e["name"]] += e["dur"]
+    if not busy:
+        raise ValueError("the trace holds no device time inside the frames")
+    span_ms = sum(e - s for s, e in frames) / 1e3
+    busy_ms = _union_ms(busy)
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]
+    return dict(
+        frames=n_frames, frame_ms=span_ms / n_frames,
+        device_busy_ms=busy_ms / n_frames, idle_share=1 - busy_ms / span_ms,
+        stage_device_ms={k: stage_us[k] / 1e3 / n_frames
+                         for k in STAGES + ("other",) if k in stage_us},
+        top_kernels_ms={k: v / 1e3 / n_frames for k, v in top})
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", default=str(
+        Path(__file__).resolve().parents[1] / "build" / "profile"))
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_path: needs a CUDA device")
+    model, batch = main_path.build_main_path(torch.device("cuda"))
+    instrument(model)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        main_path.frame(model, batch)  # warm-up: the build, first launches
+        t0 = time.perf_counter()
+        for _ in range(N_FRAMES):
+            main_path.frame(model, batch)
+        untraced_ms = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(N_FRAMES):
+                with torch.profiler.record_function("frame"):
+                    main_path.frame(model, batch)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    trace_path = out / "trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    summary = summarize(json.loads(trace_path.read_text()), N_FRAMES)
+    summary["untraced_frame_ms"] = untraced_ms
+    summary["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary, indent=1), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,311 @@
+"""The port's kernel wrappers: device dispatch and build plumbing on the CPU,
+and each hand-written CUDA kernel against its plain version on the card.
+
+This file imports torch and the port only (no jax), so the card's tests run
+on a machine without jax:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+
+Tests marked `cuda` skip without a GPU. On the card float32 is compared
+with TF32 off at max |kernel - plain| <= 1e-4 * max |plain| (summation
+order only); bfloat16 at 2e-2 (output rounding, a few ulps).
+"""
+import numpy as np
+import pytest
+import torch
+
+from cmtcoop_tpu_torch import _build, profile_path
+from cmtcoop_tpu_torch.configs.presets import (SMALL_COOP_EXTRACTOR,
+                                               SMALL_COOP_HEAD,
+                                               SMALL_COOP_PRESET, tiny_preset)
+from cmtcoop_tpu_torch.data.synthetic import small_coop_batch
+from cmtcoop_tpu_torch.models.build import build_detector, random_init_
+from cmtcoop_tpu_torch.ops import pillars as pu
+from cmtcoop_tpu_torch.ops.attention import (NEG_INF, flash_attention_packed,
+                                             flash_attention_packed_reference)
+from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
+                                           conv3x3_bn_relu_reference)
+from cmtcoop_tpu_torch.ops.pillar_fused import (fused_pillar_conv,
+                                                fused_pillar_conv_reference)
+
+# the small cooperative detector of the slice tests (16x16 BEV, 2 stages)
+SLICE_PRESET = tiny_preset(**SMALL_COOP_PRESET)
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def slice_model(agents=("vehicle", "infrastructure")):
+    return build_detector(SLICE_PRESET,
+                          extractor_kwargs=SMALL_COOP_EXTRACTOR,
+                          head_kwargs=SMALL_COOP_HEAD, agents=agents)
+
+
+def cuda_device():
+    """The CUDA device, or skip. Turns TF32 off so the plain versions a
+    kernel is held against run in full float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (on the card: python -m "
+                    "pytest tests/test_torch_kernels.py -m cuda --noconftest)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(got, ref, tol):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got[1:], ref[1:]):
+        assert torch.equal(g, r)
+    g, r = got[0].float(), ref[0].float()
+    assert g.shape == r.shape
+    err = float((g - r).abs().max())
+    assert err <= tol * float(r.abs().max()), err
+
+
+# ------------------------------- on the CPU --------------------------------
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    meta = torch.device("meta")
+    x = torch.zeros(8, 4, 2, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_pillar_conv(x, torch.zeros(8, 9, dtype=torch.int32,
+                                         device=meta),
+                          torch.zeros(27, 2, 2, device=meta),
+                          occ_out=torch.zeros(8, 4, dtype=torch.bool,
+                                              device=meta))
+    q = torch.zeros(1, 4, 8, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_packed(q, q, q, None, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        conv3x3_bn_relu(torch.zeros(1, 3, 3, 2, device=meta),
+                        torch.zeros(4, 2, 3, 3, device=meta),
+                        torch.ones(4, device=meta),
+                        torch.zeros(4, device=meta))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(0)
+    before = dict(_build.launch_counts)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 32)).astype(
+        np.float32)) for n in (5, 7, 7))
+    torch.testing.assert_close(
+        flash_attention_packed(q, k, v, None, 4),
+        flash_attention_packed_reference(q, k, v, torch.zeros(1, 7), 4))
+    x = torch.from_numpy(rng.normal(size=(1, 4, 5, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(6, 3, 3, 3)).astype(np.float32))
+    torch.testing.assert_close(
+        conv3x3_bn_relu(x, w, torch.ones(6), torch.zeros(6)),
+        conv3x3_bn_relu_reference(x, w, torch.ones(6), torch.zeros(6)))
+    assert _build.launch_counts == before
+
+
+def test_library_is_keyed_by_sources_and_flags(monkeypatch):
+    a = _build.library_path()
+    assert a.parent == _build.BUILD_DIR and a.suffix == ".so"
+    assert _build.library_path() == a
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path() != a
+    assert {p.name for p in _build.sources()} >= {
+        "pillar_conv.cu", "flash_attention.cu", "conv3x3.cu", "common.cuh"}
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if (_build.Path("/usr/local/cuda") / "bin" / "nvcc").exists():
+        pytest.skip("this machine has a CUDA toolkit")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_launch_counts_reset():
+    _build.count("conv3x3_bn_relu")
+    assert _build.launch_counts["conv3x3_bn_relu"] >= 1
+    _build.reset_counts()
+    assert set(_build.launch_counts.values()) == {0}
+    assert tuple(_build.launch_counts) == _build.KERNELS
+
+
+def test_profile_summary_reads_one_trace():
+    """Idle share, stage and kernel device times from a hand-made trace of
+    two 100 us frames (Chrome trace times in us)."""
+    def ev(cat, name, ts, dur, corr=None):
+        return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
+                    args={} if corr is None else {"correlation": corr})
+    trace = {"traceEvents": [
+        ev("user_annotation", "frame", 0, 100),
+        ev("user_annotation", "frame", 200, 100),
+        ev("user_annotation", "decoder", 10, 40),
+        ev("user_annotation", "pillarize", 210, 10),
+        ev("cuda_runtime", "cudaLaunchKernel", 20, 1, corr=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 60, 1, corr=3),
+        ev("cuda_driver", "cuLaunchKernel", 215, 1, corr=2),
+        ev("kernel", "attn", 30, 40, corr=1),
+        ev("gpu_memcpy", "copy", 60, 20, corr=3),   # overlaps attn
+        ev("kernel", "sort", 250, 70, corr=2),      # runs past the frame
+        ev("kernel", "sort", 150, 10, corr=4),      # between the frames
+        {"ph": "i", "name": "marker", "ts": 5},
+    ]}
+    got = profile_path.summarize(trace, 2)
+    assert got["frame_ms"] == pytest.approx(0.1)
+    assert got["device_busy_ms"] == pytest.approx(0.05)  # (50 + 50) / 2
+    assert got["idle_share"] == pytest.approx(0.5)
+    assert got["stage_device_ms"] == pytest.approx(
+        {"pillarize": 0.035, "decoder": 0.02, "other": 0.01})
+    assert got["top_kernels_ms"] == pytest.approx(
+        {"sort": 0.035, "attn": 0.02, "copy": 0.01})
+    with pytest.raises(ValueError, match="frame spans"):
+        profile_path.summarize(trace, 3)
+
+
+def test_profile_spans_leave_the_model_unchanged():
+    model = slice_model()
+    random_init_(model, torch.Generator().manual_seed(2))
+    batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
+    with torch.inference_mode():
+        ref, _ = model(batch)
+        profile_path.instrument(model)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got, _ = model(batch)
+    names = {e.key for e in prof.key_averages()}
+    assert set(profile_path.STAGES) <= names
+    for o, r in zip(got, ref):
+        for key in r:
+            torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
+
+
+def test_single_agent_detector_equals_coop_vehicle_only():
+    """CmtDetector (extractor modules at the top level) and the coop
+    detector degraded to the vehicle agent compute the same function."""
+    import dataclasses
+    coop = slice_model(("vehicle",))
+    random_init_(coop, torch.Generator().manual_seed(1))
+    single = build_detector(dataclasses.replace(SLICE_PRESET,
+                                                domain="vehicle"),
+                            extractor_kwargs=SMALL_COOP_EXTRACTOR,
+                            head_kwargs=SMALL_COOP_HEAD)
+    single.load_state_dict({k.replace("vehicle_model.", ""): v
+                            for k, v in coop.state_dict().items()},
+                           strict=True)
+    b = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()
+         if k.startswith("vehicle_")}
+    with torch.inference_mode():
+        ref, _ = coop(b)
+        got, _ = single({k[len("vehicle_"):]: v for k, v in b.items()})
+    for o, r in zip(got, ref):
+        for key in r:
+            torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
+
+
+# ------------------------------- on the card -------------------------------
+
+
+def _pillar_inputs(dev, dtype, z=9, c=16):
+    g = torch.Generator().manual_seed(0)
+    h = w = 32
+    occ_bev = torch.rand(h, w, generator=g) < 0.35
+    ys, xs = torch.nonzero(occ_bev, as_tuple=True)
+    n = min(len(ys), 256)
+    coords = torch.full((256, 2), -1, dtype=torch.int32)
+    coords[:n, 0], coords[:n, 1] = ys[:n].int(), xs[:n].int()
+    mask = torch.arange(256) < n
+    grid = pu.PillarGrid(coords.to(dev), mask.to(dev), (h, w), z)
+    occ = ((torch.rand(256, z, generator=g) < 0.5) & mask[:, None]).to(dev)
+    x = (torch.randn(256, z, c, generator=g).to(dev) * occ[..., None])
+    w9 = torch.randn(27, c, c, generator=g).to(dev) * 0.1
+    s = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    b = (0.1 * torch.randn(c, generator=g)).to(dev)
+    return grid, occ, x.to(dtype), w9, s, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", ["subm_residual", "down_fold_occ",
+                                  "conv_out_kb1"])
+def test_pillar_kernels_match_plain(dtype, tol, case):
+    dev = cuda_device()
+    grid, occ, x, w9, s, b = _pillar_inputs(dev, dtype)
+    kw = dict(scale=s, bias=b, relu=True)
+    if case == "subm_residual":
+        nbr = pu.pillar_neighbor_map(grid)
+        kw.update(occ_out=occ, residual=torch.flip(x, (0,)).contiguous()
+                  * occ[..., None])
+        w = w9
+    elif case == "down_fold_occ":
+        nbr = pu.pillar_conv_neighbor_map(
+            grid, pu.pillar_downsample_grid(grid, 128))
+        kw.update(z_stride=2, occ_in=occ, fold_occ=True)
+        w = w9
+    else:
+        nbr = pu.identity_map(grid)
+        kw.update(z_stride=2, z_pad=0,
+                  occ_out=pu.occ_downsample(occ, nbr, 3, 2, 0))
+        w = w9[:3]
+    before = _build.launch_counts["pillar_conv_kb9" if nbr.shape[1] == 9
+                                  else "pillar_conv_kb1"]
+    got = fused_pillar_conv(x, nbr, w, **kw)
+    ref = fused_pillar_conv_reference(x, nbr, w, **kw)
+    _assert_close(got, ref, tol)
+    after = _build.launch_counts["pillar_conv_kb9" if nbr.shape[1] == 9
+                                 else "pillar_conv_kb1"]
+    assert after == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("heads,dh,nq,nk", [(8, 32, 900, 1000),
+                                            (4, 8, 24, 256),
+                                            (2, 16, 70, 63),
+                                            (1, 4, 5, 3)])
+def test_attention_kernel_matches_plain(dtype, tol, heads, dh, nq, nk):
+    """Ragged query and key edges, NEG_INF keys in one batch row; q scaled
+    so the softmax peaks (logit std 4)."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, n, heads * dh, generator=g, device=dev).mul(
+        s).to(dtype) for n, s in ((nq, 4.0), (nk, 1.0), (nk, 1.0)))
+    kb = torch.zeros(2, nk, device=dev)
+    kb[1, nk // 2:] = NEG_INF
+    _assert_close(flash_attention_packed(q, k, v, kb, heads),
+                  flash_attention_packed_reference(q, k, v, kb, heads), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 45, 45, 512, 256), (2, 7, 13, 24, 40)])
+def test_conv_kernel_matches_plain(dtype, tol, shape):
+    dev = cuda_device()
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype)
+    wt = torch.randn(cout, cin, 3, 3, generator=g, device=dev) \
+        / (9 * cin) ** 0.5
+    s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
+    _assert_close(conv3x3_bn_relu(x, wt, s, bb),
+                  conv3x3_bn_relu_reference(x, wt, s, bb), tol)
+
+
+@pytest.mark.cuda
+def test_slice_on_card_matches_cpu():
+    """The small detector with seeded weights: the card's forward (all four
+    kernels, float32) against the CPU's (plain versions), rtol = atol =
+    1e-3."""
+    dev = cuda_device()
+    cpu = slice_model()
+    random_init_(cpu, torch.Generator().manual_seed(0))
+    gpu = slice_model()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    batch = small_coop_batch()
+    _build.reset_counts()
+    with torch.inference_mode():
+        ref, _ = cpu({k: torch.from_numpy(v) for k, v in batch.items()})
+        got, _ = gpu({k: torch.from_numpy(v).to(dev)
+                      for k, v in batch.items()})
+    assert min(_build.launch_counts.values()) > 0
+    for o, r in zip(got, ref):
+        for key in r:
+            torch.testing.assert_close(o[key].cpu(), r[key], rtol=1e-3,
+                                       atol=1e-3)

@@ -1,0 +1,136 @@
+"""Weights carried across packages, and guards on the port's boundaries.
+
+- `from_jax_variables` is the exact inverse of the JAX package's
+  `convert_state_dict` on the LiDAR detectors (zero unused keys), and its
+  state_dict loads strictly into the port's detectors;
+- the port's presets equal the JAX package's, field by field;
+- no `cmtcoop_tpu_torch` module imports jax;
+- the port's synthetic batch equals the JAX benchmark batch for one seed.
+"""
+import dataclasses
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+import cmtcoop_tpu_torch
+from cmtcoop_tpu.configs import presets as jpresets
+from cmtcoop_tpu.models.build import build_detector as jbuild
+from cmtcoop_tpu.train.torch_convert import convert_state_dict
+from cmtcoop_tpu_torch.configs import presets
+from cmtcoop_tpu_torch.convert import from_jax_variables
+from cmtcoop_tpu_torch.data.synthetic import coop_batch
+from cmtcoop_tpu_torch.models.build import build_detector
+
+REPO = Path(__file__).resolve().parents[1]
+
+# (tiny_preset overrides, extractor overrides, head overrides,
+#  torch_convert spec)
+CONFIGS = {
+    "coop_2stage": (
+        presets.SMALL_COOP_PRESET, presets.SMALL_COOP_EXTRACTOR,
+        presets.SMALL_COOP_HEAD,
+        dict(encoder_channels=((8, 16), (16,)), second_layers=(1, 1),
+             num_decoder_layers=2)),
+    "vehicle_4stage_2tasks": (
+        dict(tasks=(("CAR", "TRUCK"), ("PEDESTRIAN",))),
+        {}, dict(downsample_scale=8),
+        dict(encoder_channels=((8, 8, 8), (8, 8, 16), (16, 16, 16),
+                               (16, 16)),
+             second_layers=(1, 1), num_decoder_layers=2)),
+}
+
+
+def _random_variables(model, batch, rng):
+    """Every leaf of the flax tree from numpy (shapes by eval_shape)."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), batch)
+    return jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+
+
+def _points(rng, prefixes):
+    return {p + k: jnp.asarray(v) for p in prefixes for k, v in (
+        ("points", rng.uniform(-7, 7, (1, 256, 5)).astype(np.float32)),
+        ("points_mask", np.ones((1, 256), bool)))}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_weights_round_trip_exactly(rng, name):
+    over, ek, hk, spec = CONFIGS[name]
+    preset = presets.tiny_preset(**over)
+    jm = jbuild(jpresets.tiny_preset(**over), train=False,
+                extractor_kwargs=ek, head_kwargs=hk)
+    prefixes = (("vehicle_", "infrastructure_") if preset.domain == "coop"
+                else ("",))
+    variables = _random_variables(jm, _points(rng, prefixes), rng)
+    sd = from_jax_variables(variables)
+    params, stats, unused = convert_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, dict(spec, tasks=preset.tasks))
+    assert unused == []
+    for ours, ref in ((params, variables["params"]),
+                      (stats, variables["batch_stats"])):
+        assert (jax.tree_util.tree_structure(ours)
+                == jax.tree_util.tree_structure(ref))
+        for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(ref)):
+            np.testing.assert_array_equal(a, b)
+    model = build_detector(preset, extractor_kwargs=ek, head_kwargs=hk)
+    model.load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("name", sorted(presets.PRESETS) + sorted(CONFIGS))
+def test_presets_equal_the_jax_packages(name):
+    if name in CONFIGS:
+        ours = presets.tiny_preset(**CONFIGS[name][0])
+        ref = jpresets.tiny_preset(**CONFIGS[name][0])
+    else:
+        ours, ref = presets.get_preset(name), jpresets.get_preset(name)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ([f.name for f in dataclasses.fields(ours)]
+            == [f.name for f in dataclasses.fields(ref)])
+    for train in (False, True):
+        assert ours.extractor_kwargs(train) == ref.extractor_kwargs(train)
+    assert ours.head_kwargs() == ref.head_kwargs()
+    assert (ours.agents, ours.use_lidar, ours.use_camera) == (
+        ref.agents, ref.use_lidar, ref.use_camera)
+
+
+def test_port_never_imports_jax():
+    names = [m.name for m in pkgutil.walk_packages(
+        cmtcoop_tpu_torch.__path__, "cmtcoop_tpu_torch.")]
+    assert "cmtcoop_tpu_torch.models.detector" in names
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}:\n"
+            "    importlib.import_module(n)\n"
+            "assert 'jax' not in sys.modules, sorted(\n"
+            "    m for m in sys.modules if m.startswith('jax'))\n"
+            "assert 'flax' not in sys.modules\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_coop_batch_matches_benchmark_batch():
+    # importing the entry module points jax's compile cache elsewhere; keep
+    # this test process's settings
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_entry_size_bytes",
+            "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    try:
+        from __graft_entry__ import _coop_batch
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    ref = _coop_batch(batch_size=2, n_points=4096, veh_views=1,
+                      infra_views=2, img_hw=(8, 16), max_gt=4, seed=3)
+    ours = coop_batch(2, 4096, 1, 2, (8, 16), max_gt=4, seed=3)
+    assert set(ours) == set(ref)
+    for k, v in ref.items():
+        assert ours[k].dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(ours[k], np.asarray(v), err_msg=k)
