@@ -9,23 +9,30 @@ Phases, each raising on failure (the script then exits non-zero):
   1. the device: its name and `nvidia-smi` name / power limit;
   2. the kernel build (nvcc, sm_90a) and its seconds;
   3. each hand-written kernel against its plain PyTorch version on the card,
-     at the main path's shapes (neighbour maps and occupancy from the
-     benchmark cloud), in bfloat16 and float32, with error and time;
-  4. the main path: `build_detector` on `cmt_lidar_coop_tumtraf` at full
-     width in bfloat16 with seeded random weights, on the benchmark batch
-     (two 65536-point ray-cast clouds, seed 0): zero pillar and voxel cap
-     drops at every level, warm-up plus 3 timed frames of forward and
-     top-300 decode, finite BEV features and decoder outputs, every kernel's
-     launch count above zero;
-  5. slice parity: the small detector of the CPU parity tests
-     (cmtcoop_tpu_torch/configs/presets.py `SMALL_COOP_*`), the GPU forward
-     (kernels, float32) against the CPU forward (plain versions) on the
-     same weights and inputs.
+     at the main paths' shapes (neighbour maps and occupancy from the
+     benchmark cloud; the VoVNet stage shapes of the camera branch), in
+     bfloat16 and float32, with error, tolerance and time;
+  4. the main paths, each through `build_detector` at full width in
+     bfloat16 with seeded random weights, on the benchmark batch (two
+     65536-point ray-cast clouds, seed 0): `cmt_lidar_coop_tumtraf`, then
+     the flagship `cmt_fusion_coop_tumtraf` (plus 1 vehicle and 3
+     infrastructure cameras at 640x1600). Per path: zero pillar and voxel
+     cap drops at every level, warm-up plus 3 timed frames of forward and
+     top-300 decode, finite BEV maps (and CPFPN outputs) and decoder
+     outputs, the launch count of every kernel of the path above zero and
+     of every other kernel zero; on the fusion path memories of 36400
+     (vehicle) and 44400 (infrastructure) tokens;
+  5. slice parity: the small LiDAR and fusion detectors of the CPU parity
+     tests (cmtcoop_tpu_torch/configs/presets.py `SMALL_COOP_*`,
+     `SMALL_FUSION_*`), the GPU forward (kernels, float32) against the CPU
+     forward (plain versions) on the same weights and inputs.
 
-Before the last line come a JSON object with one entry per kernel and the
-card's name and power limit from `nvidia-smi`; the last line is
-`{"ok": true, "device": {...}}`. Without a CUDA device, or run
-outside a checkout, it exits non-zero and prints no result.
+Before the last line come a JSON object with one entry per kernel (its
+launches on each main path, its worst bfloat16 error and its first case's
+kernel and plain times) and the card's name and power limit from
+`nvidia-smi`; the last line is `{"ok": true, "device": {...}}`. Without a
+CUDA device, or run outside a checkout, it exits non-zero and prints no
+result.
 """
 import copy
 import json
@@ -54,6 +61,10 @@ SOURCES = {
                                "cmtcoop_tpu/ops/attention.py:214"),
     "conv3x3_bn_relu": ("cmtcoop_tpu_torch/csrc/conv3x3.cu",
                         "cmtcoop_tpu/ops/conv_cf.py:89"),
+    "conv3x3_bn_relu_resid": ("cmtcoop_tpu_torch/csrc/conv3x3.cu",
+                              "cmtcoop_tpu/ops/conv_cf.py:184"),
+    "osa_aggregate": ("cmtcoop_tpu_torch/csrc/osa_agg.cu",
+                      "cmtcoop_tpu/ops/conv_cf.py:273"),
 }
 
 
@@ -74,9 +85,13 @@ def cuda_ms(fn, warmup=2, iters=5):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, shape_note, kernel, plain, make_inputs, results):
+def compare(name, shape_note, kernel, plain, make_inputs, results,
+            exact_side=True):
     """Kernel vs plain version on the same inputs, in bfloat16 and float32;
-    `make_inputs(dtype)` gives (args, kwargs). Records the bf16 numbers."""
+    `make_inputs(dtype)` gives (args, kwargs). The first output is held to
+    TOL of its max|plain|; side outputs are held equal (occupancy) or, with
+    `exact_side=False`, each to TOL of its own max|plain| (the aggregate's
+    gap). Records the bf16 numbers of the first output."""
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         args, kw = make_inputs(dtype)
@@ -85,23 +100,31 @@ def compare(name, shape_note, kernel, plain, make_inputs, results):
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        for g, r in zip(got[1:], ref[1:]):  # exact side outputs (occupancy)
-            if not torch.equal(g, r):
-                raise AssertionError(f"{name} {shape_note} {dname}: "
-                                     "occupancy differs from the plain version")
-        g, r = got[0].float(), ref[0].float()
-        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{name} {shape_note} {dname}: shape "
-                                 f"{tuple(g.shape)} vs {tuple(r.shape)} or "
-                                 "non-finite output")
-        err = float((g - r).abs().max())
-        peak = float(r.abs().max())
-        ok = err <= TOL[dname] * peak
+        if exact_side:
+            for g, r in zip(got[1:], ref[1:]):
+                if not torch.equal(g, r):
+                    raise AssertionError(f"{name} {shape_note} {dname}: "
+                                         "occupancy differs from the plain "
+                                         "version")
+        errs = []
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if i and exact_side:
+                break
+            g, r = g.float(), r.float()
+            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name} {shape_note} {dname}: output "
+                                     f"{i} shape {tuple(g.shape)} vs "
+                                     f"{tuple(r.shape)} or non-finite")
+            errs.append((float((g - r).abs().max()), float(r.abs().max())))
+        ok = all(e <= TOL[dname] * p for e, p in errs)
+        err, peak = errs[0]
         k_ms = cuda_ms(lambda: kernel(*args, **kw))
         p_ms = cuda_ms(lambda: plain(*args, **kw))
+        side = "".join(f", output {i}: max_rel_err={e / max(p, 1e-30):.3e}"
+                       for i, (e, p) in enumerate(errs) if i)
         log(f"kernel {name} [{shape_note}] {dname}: max_abs_err={err:.3e} "
             f"max_rel_err={err / max(peak, 1e-30):.3e} (max|plain|="
-            f"{peak:.3e}, tol {TOL[dname]:g} of max|plain|) "
+            f"{peak:.3e}, tol {TOL[dname]:g} of max|plain|){side} "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -143,7 +166,9 @@ def kernel_phases(lv, results, dev):
     from cmtcoop_tpu_torch.ops.attention import (
         NEG_INF, flash_attention_packed, flash_attention_packed_reference)
     from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
-                                               conv3x3_bn_relu_reference)
+                                               conv3x3_bn_relu_reference,
+                                               osa_aggregate,
+                                               osa_aggregate_reference)
     from cmtcoop_tpu_torch.ops.pillar_fused import (
         fused_pillar_conv, fused_pillar_conv_reference)
 
@@ -195,12 +220,165 @@ def kernel_phases(lv, results, dev):
             lambda dt: ((q.to(dt), k.to(dt), v.to(dt), kbias, 8), {}),
             results)
 
-    x = randn(1, 180, 180, 512)
-    w = randn(256, 512, 3, 3, scale=(9 * 512) ** -0.5)
-    s, b = 1.0 + 0.1 * randn(256), 0.1 * randn(256)
-    compare("conv3x3_bn_relu", "180x180 512->256", conv3x3_bn_relu,
-            conv3x3_bn_relu_reference,
-            lambda dt: ((x.to(dt), w, s, b), {}), results)
+    def conv_case(name, note, v, h, w, cin, cout, with_resid):
+        x = randn(v, h, w, cin)
+        wt = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        s, b = 1.0 + 0.1 * randn(cout), 0.1 * randn(cout)
+        res = randn(v, h, w, cout) if with_resid else None
+
+        def inputs(dt):
+            kw = {} if res is None else dict(residual=res.to(dt))
+            return (x.to(dt), wt, s, b), kw
+
+        compare(name, note, conv3x3_bn_relu, conv3x3_bn_relu_reference,
+                inputs, results)
+
+    conv_case("conv3x3_bn_relu", "head 180x180 512->256", 1, 180, 180, 512,
+              256, False)
+    conv_case("conv3x3_bn_relu", "VoVNet stage 3 V3 80x200 160->160", 3, 80,
+              200, 160, 160, False)
+    conv_case("conv3x3_bn_relu_resid", "V3 80x200 160->160 + residual", 3,
+              80, 200, 160, 160, True)
+
+    def agg_case(note, v, h, w, chans, cout):
+        parts = [randn(v, h, w, c) for c in chans]
+        wt = randn(sum(chans), cout, scale=sum(chans) ** -0.5)
+        s, b = 1.0 + 0.1 * randn(cout), 0.1 * randn(cout)
+        compare("osa_aggregate", note, osa_aggregate,
+                osa_aggregate_reference,
+                lambda dt: (([p.to(dt) for p in parts], wt, s, b), {}),
+                results, exact_side=False)
+
+    agg_case("stage 2 V3 160x400 128+5x128->256 (agg; output 1 = gap)", 3,
+             160, 400, (128,) + (128,) * 5, 256)
+    agg_case("stage 4 identity block V3 40x100 768+5x192->768 (agg; "
+             "output 1 = gap)", 3, 40, 100, (768,) + (192,) * 5, 768)
+
+
+def telemetry(model, batch):
+    """bench.py's cap telemetry for both agents' clouds: raises unless
+    there are zero pillar and voxel drops at every level. Returns the
+    vehicle cloud's levels (phase 3's shapes)."""
+    from cmtcoop_tpu_torch.main_path import PILLAR_CAPS
+    levels = {}
+    for agent in ("vehicle_", "infrastructure_"):
+        ext = getattr(model, agent + "model")
+        stats, counts, levels[agent] = levels_of(batch, agent, ext)
+        s = {k: int(v) for k, v in stats.items()}
+        occs = " ".join(f"L{i + 1}={n}/{c}" for i, (n, c) in
+                        enumerate(zip(counts, PILLAR_CAPS[1:])))
+        log(f"cloud {agent}: {s['n_points_in_range']} pts, "
+            f"{s['n_pillars_raw']} pillars ({s['n_pillars_dropped']} "
+            f"dropped), {s['n_voxels_raw']} voxels "
+            f"({s['n_voxels_dropped']} dropped), {occs}")
+        if s["n_pillars_dropped"] or s["n_voxels_dropped"]:
+            raise AssertionError(f"{agent} cloud overflows a cap")
+        for n, c in zip(counts, PILLAR_CAPS[1:]):
+            if n > c:
+                raise AssertionError(f"{agent} level occupancy {n} > {c}")
+    return levels["vehicle_"]
+
+
+def run_path(preset, model, batch):
+    """Phase 4 on one main path: warm-up, N_FRAMES timed frames, the
+    checks of the module docstring. Returns the launch counts."""
+    from cmtcoop_tpu_torch import _build, main_path
+    head = model.pts_bbox_head
+    finite, memory_len = [], []
+
+    def check_finite(name):
+        def hook(m, i, o):
+            outs = o if isinstance(o, tuple) else (o,)
+            finite.append((name, all(torch.isfinite(t).all() for t in outs)))
+        return hook
+
+    hooks = [head.transformer.decoder.register_forward_hook(
+        check_finite("decoder"))]
+    for a in model.agents:
+        ext = getattr(model, a + "_model")
+        hooks.append(ext.pts_neck.register_forward_hook(check_finite("bev")))
+        if ext.use_camera:
+            hooks.append(ext.img_neck.register_forward_hook(
+                check_finite("cpfpn")))
+    build_memory = head.build_memory
+
+    def recording_build_memory(agent):
+        mem, pos = build_memory(agent)
+        memory_len.append(mem.shape[1])
+        return mem, pos
+
+    head.build_memory = recording_build_memory
+    with torch.inference_mode():
+        main_path.frame(model, batch)  # warm-up (first-launch costs)
+        finite.clear()
+        memory_len.clear()
+        _build.reset_counts()
+        times = []
+        for _ in range(N_FRAMES):
+            t0 = time.perf_counter()
+            task_outs, dec = main_path.frame(model, batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.launch_counts)
+    for h in hooks:
+        h.remove()
+    del head.build_memory
+    bad = [name for name, ok in finite if not bool(ok)]
+    # per frame and agent: the BEV map, the CPFPN outputs with the camera
+    # branch, the decoder pass
+    per_agent = 3 if model.vehicle_model.use_camera else 2
+    if bad or len(finite) != per_agent * len(model.agents) * N_FRAMES:
+        raise AssertionError(f"{preset}: non-finite outputs before "
+                             f"nan_to_num: {bad}")
+    for k, v in task_outs[0].items():
+        if not bool(torch.isfinite(v).all()) or v.shape[:3] != (6, 1, 900):
+            raise AssertionError(f"{preset}: task output {k} "
+                                 f"{tuple(v.shape)}")
+    if dec.scores.shape != (300,) or dec.boxes.shape != (300, 9) or not bool(
+            torch.isfinite(dec.boxes).all()):
+        raise AssertionError(f"{preset}: decode did not give 300 finite "
+                             "slots")
+    # per agent: 32400 BEV tokens, plus 4000 per 640x1600 camera view
+    views = dict(zip(("vehicle", "infrastructure"), main_path.VIEWS))
+    rv = 4000 if model.vehicle_model.use_camera else 0
+    want = [32400 + rv * views[a] for a in model.agents] * N_FRAMES
+    if memory_len != want:
+        raise AssertionError(f"{preset}: memory lengths {memory_len}, "
+                             f"expected {want}")
+    log(f"main path {preset}: {N_FRAMES} frames, ms/frame "
+        f"{' '.join(f'{t:.1f}' for t in times)} (mean "
+        f"{sum(times) / len(times):.1f}), {int(dec.valid.sum())}/300 valid "
+        f"slots, memory tokens per agent {memory_len[:len(model.agents)]}, "
+        f"launches {launches}")
+    path_kernels = main_path.PATH_KERNELS[preset]
+    for name in _build.KERNELS:
+        if (launches[name] > 0) != (name in path_kernels):
+            raise AssertionError(f"{preset}: kernel {name} launched "
+                                 f"{launches[name]} times")
+    return launches
+
+
+def slice_parity(name, model, batch, kernels, dev):
+    """Phase 5 on one small detector: GPU kernels vs CPU plain, float32."""
+    from cmtcoop_tpu_torch import _build
+    from cmtcoop_tpu_torch.models.build import random_init_
+    random_init_(model, torch.Generator().manual_seed(SEED))
+    sb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        cpu_outs, _ = model(sb)
+        gpu_model = copy.deepcopy(model).to(dev)
+        before = dict(_build.launch_counts)
+        gpu_outs, _ = gpu_model({k: v.to(dev) for k, v in sb.items()})
+    used = {k: _build.launch_counts[k] - before[k] for k in before}
+    worst = 0.0
+    for k, ref in cpu_outs[0].items():
+        got = gpu_outs[0][k].cpu()
+        worst = max(worst, float((got - ref).abs().max()) /
+                    max(1.0, float(ref.abs().max())))
+    log(f"slice parity ({name}, float32, GPU kernels vs CPU plain): max err "
+        f"{worst:.3e} of max(1, max|ref|) (tol {SLICE_TOL:g}), kernel "
+        f"launches {used}")
+    if worst > SLICE_TOL or {k for k, n in used.items() if n} != set(kernels):
+        raise AssertionError(f"slice parity failed ({name})")
 
 
 def main():
@@ -213,10 +391,12 @@ def main():
     sys.path.insert(0, str(REPO))
     from cmtcoop_tpu_torch import _build, main_path
     from cmtcoop_tpu_torch.configs.presets import (
-        SMALL_COOP_EXTRACTOR, SMALL_COOP_HEAD, SMALL_COOP_PRESET, tiny_preset)
-    from cmtcoop_tpu_torch.data.synthetic import small_coop_batch
-    from cmtcoop_tpu_torch.main_path import PILLAR_CAPS
-    from cmtcoop_tpu_torch.models.build import build_detector, random_init_
+        SMALL_COOP_EXTRACTOR, SMALL_COOP_HEAD, SMALL_COOP_PRESET,
+        SMALL_FUSION_EXTRACTOR, SMALL_FUSION_HEAD, SMALL_FUSION_PRESET,
+        tiny_preset)
+    from cmtcoop_tpu_torch.data.synthetic import (small_coop_batch,
+                                                  small_fusion_batch)
+    from cmtcoop_tpu_torch.models.build import build_detector
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -237,102 +417,52 @@ def main():
     _build.lib()
     log(f"build: {time.time() - t0:.1f} s -> {lib_path.name}")
 
-    # full-width model and the benchmark batch (shapes for phase 3 too)
-    model, batch = main_path.build_main_path(dev)
-
-    # cap telemetry (bench.py's): zero drops at every level
-    levels = {}
+    # the LiDAR path's model and batch, with its clouds' telemetry (zero
+    # drops), which also gives phase 3 its pillar shapes
+    model, batch = main_path.build_main_path(dev, main_path.PRESET)
     with torch.inference_mode():
-        for agent in ("vehicle_", "infrastructure_"):
-            ext = getattr(model, agent + "model")
-            stats, counts, lv = levels_of(batch, agent, ext)
-            levels[agent] = lv
-            s = {k: int(v) for k, v in stats.items()}
-            occs = " ".join(f"L{i + 1}={n}/{c}" for i, (n, c) in
-                            enumerate(zip(counts, PILLAR_CAPS[1:])))
-            log(f"cloud {agent}: {s['n_points_in_range']} pts, "
-                f"{s['n_pillars_raw']} pillars ({s['n_pillars_dropped']} "
-                f"dropped), {s['n_voxels_raw']} voxels "
-                f"({s['n_voxels_dropped']} dropped), {occs}")
-            if s["n_pillars_dropped"] or s["n_voxels_dropped"]:
-                raise AssertionError(f"{agent} cloud overflows a cap")
-            for n, c in zip(counts, PILLAR_CAPS[1:]):
-                if n > c:
-                    raise AssertionError(f"{agent} level occupancy {n} > {c}")
+        levels = telemetry(model, batch)
 
     # 3. each kernel against its plain version
     results = {}
     with torch.inference_mode():
-        kernel_phases(levels["vehicle_"], results, dev)
+        kernel_phases(levels, results, dev)
 
-    # 4. the main path
-    head = model.pts_bbox_head
-    finite = []
-    hooks = [getattr(model, a + "model").pts_neck.register_forward_hook(
-        lambda m, i, o: finite.append(("bev", torch.isfinite(o).all())))
-        for a in ("vehicle_", "infrastructure_")]
-    hooks.append(head.transformer.decoder.register_forward_hook(
-        lambda m, i, o: finite.append(("decoder", torch.isfinite(o).all()))))
-
+    # 4. the main paths, one model on the card at a time
+    launches = {main_path.PRESET: run_path(main_path.PRESET, model, batch)}
+    del model, batch, levels
+    torch.cuda.empty_cache()
+    preset = main_path.FUSION_PRESET
+    model, batch = main_path.build_main_path(dev, preset)
     with torch.inference_mode():
-        main_path.frame(model, batch)  # warm-up (first-launch costs)
-        finite.clear()
-        _build.reset_counts()
-        times = []
-        for _ in range(N_FRAMES):
-            t0 = time.perf_counter()
-            task_outs, dec = main_path.frame(model, batch)
-            times.append((time.perf_counter() - t0) * 1e3)
-        launches = dict(_build.launch_counts)
-    for h in hooks:
-        h.remove()
-    bad = [name for name, ok in finite if not bool(ok)]
-    # per frame: each agent's BEV map and each agent's decoder pass
-    if bad or len(finite) != 4 * N_FRAMES:
-        raise AssertionError(f"non-finite outputs before nan_to_num: {bad}")
-    for k, v in task_outs[0].items():
-        if not bool(torch.isfinite(v).all()) or v.shape[:3] != (6, 1, 900):
-            raise AssertionError(f"task output {k} {tuple(v.shape)}")
-    if dec.scores.shape != (300,) or dec.boxes.shape != (300, 9) or not bool(
-            torch.isfinite(dec.boxes).all()):
-        raise AssertionError("decode did not give 300 finite slots")
-    log(f"main path: {N_FRAMES} frames, ms/frame "
-        f"{' '.join(f'{t:.1f}' for t in times)} (mean "
-        f"{sum(times) / len(times):.1f}), {int(dec.valid.sum())}/300 valid "
-        f"slots, launches {launches}")
-    for name in _build.KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the path")
+        telemetry(model, batch)
+    launches[preset] = run_path(preset, model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
 
-    # 5. slice parity (small config): GPU kernels vs CPU plain, float32
-    small = build_detector(tiny_preset(**SMALL_COOP_PRESET),
-                           extractor_kwargs=SMALL_COOP_EXTRACTOR,
-                           head_kwargs=SMALL_COOP_HEAD)
-    random_init_(small, torch.Generator().manual_seed(SEED))
-    sb = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
-    with torch.inference_mode():
-        cpu_outs, _ = small(sb)
-        gpu_model = copy.deepcopy(small).to(dev)
-        before = dict(_build.launch_counts)
-        gpu_outs, _ = gpu_model({k: v.to(dev) for k, v in sb.items()})
-    used = {k: _build.launch_counts[k] - before[k] for k in before}
-    worst = 0.0
-    for k, ref in cpu_outs[0].items():
-        got = gpu_outs[0][k].cpu()
-        worst = max(worst, float((got - ref).abs().max()) /
-                    max(1.0, float(ref.abs().max())))
-    log(f"slice parity (small coop detector, float32, GPU kernels vs CPU "
-        f"plain): max err {worst:.3e} of max(1, max|ref|) (tol "
-        f"{SLICE_TOL:g}), kernel launches {used}")
-    if worst > SLICE_TOL or min(used.values()) <= 0:
-        raise AssertionError("slice parity failed")
+    # 5. slice parity (small configs): GPU kernels vs CPU plain, float32
+    slice_parity("small LiDAR coop detector",
+                 build_detector(tiny_preset(**SMALL_COOP_PRESET),
+                                extractor_kwargs=SMALL_COOP_EXTRACTOR,
+                                head_kwargs=SMALL_COOP_HEAD),
+                 small_coop_batch(), main_path.PATH_KERNELS[main_path.PRESET],
+                 dev)
+    slice_parity("small fusion coop detector",
+                 build_detector(tiny_preset(**SMALL_FUSION_PRESET),
+                                extractor_kwargs=SMALL_FUSION_EXTRACTOR,
+                                head_kwargs=SMALL_FUSION_HEAD),
+                 small_fusion_batch(),
+                 main_path.PATH_KERNELS[main_path.FUSION_PRESET], dev)
 
     kernels = []
     for name in _build.KERNELS:
         src, replaces = SOURCES[name]
         r = results[name]
+        per_path = {p: n[name] for p, n in launches.items()}
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name],
+                            replaces=replaces,
+                            launches=sum(per_path.values()),
+                            launches_per_path=per_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

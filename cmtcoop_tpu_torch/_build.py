@@ -25,9 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel name -> launches since the last reset (kernels 1 to 4 of the port)
+# kernel name -> launches since the last reset (kernels 1 to 6 of the port)
 KERNELS = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
-           "conv3x3_bn_relu")
+           "conv3x3_bn_relu", "conv3x3_bn_relu_resid", "osa_aggregate")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,7 +37,9 @@ _SIGNATURES = {
     "cmt_pillar_conv_kb1": _PILLAR_ARGS,
     "cmt_pillar_occ_fold": [_P] * 3 + [_I] * 8 + [_P],
     "cmt_flash_attention_packed": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
-    "cmt_conv3x3_bn_relu": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+    "cmt_conv3x3_bn_relu": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "cmt_osa_aggregate": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P] * 5
+    + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -156,3 +156,12 @@ SMALL_COOP_EXTRACTOR = dict(sparse_base_channels=8,
                             sparse_out_channels=16, pillar_caps=(128, 128),
                             fpn_channels=(16, 16))
 SMALL_COOP_HEAD = dict(downsample_scale=2)
+
+# The small cooperative fusion detector: the same LiDAR branch, plus a
+# V-19-slim-eSE backbone and a CPFPN of 32 channels (= hidden_dim, as the
+# image tokens join the memory unprojected) on 64x128 images (4x8 tokens per
+# view), depth_num 8 (the tiny head's). `tiny_preset(**SMALL_FUSION_PRESET)`
+# is its preset; data/synthetic.py `small_fusion_batch()` its batch.
+SMALL_FUSION_PRESET = dict(SMALL_COOP_PRESET, modality="fusion")
+SMALL_FUSION_EXTRACTOR = SMALL_COOP_EXTRACTOR
+SMALL_FUSION_HEAD = SMALL_COOP_HEAD

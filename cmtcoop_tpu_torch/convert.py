@@ -1,11 +1,12 @@
 """JAX package variables -> this package's state_dict.
 
 `from_jax_variables` takes the flax `{"params", "batch_stats"}` tree of a
-`cmtcoop_tpu` LiDAR detector (`CmtDetector` or `CmtCoopDetector`, eval
-modules) as numpy arrays and returns the reference-layout state_dict that
-this package's detector loads with `load_state_dict(strict=True)`. It is the
-inverse of `cmtcoop_tpu/train/torch_convert.py::convert_state_dict` on
-every module of the LiDAR path:
+`cmtcoop_tpu` detector (`CmtDetector` or `CmtCoopDetector`; LiDAR, camera
+or fusion; eval modules) as numpy arrays and returns the reference-layout
+state_dict that this package's detector loads with
+`load_state_dict(strict=True)`. It is the inverse of
+`cmtcoop_tpu/train/torch_convert.py::convert_state_dict` on every module of
+the eval path (VoVNet, CPFPN, the pillar encoder, SECOND/FPN, the head):
 
   Conv2d            (kh, kw, I, O)            -> (O, I, kh, kw)
   ConvTranspose2d   (kh, kw, I, O), flipped   -> (I, O, kh, kw)
@@ -66,6 +67,12 @@ class _Out:
         if "bias" in p:
             self.put(f"{key}.bias", p["bias"])
 
+    def conv_bn(self, conv_key: str, bn_key: str, p: Mapping,
+                s: Mapping) -> None:
+        """A flax `ConvBNReLU` (`Conv_0`, `BatchNorm_0`)."""
+        self.put(conv_key, _conv(p["Conv_0"]["kernel"]))
+        self.bn(bn_key, p["BatchNorm_0"], s["BatchNorm_0"])
+
 
 def _numbered(tree: Mapping, pattern: str):
     """Sorted integer captures of the keys of `tree` matching `pattern`."""
@@ -77,7 +84,47 @@ def _numbered(tree: Mapping, pattern: str):
     return sorted(out)
 
 
+def _vovnet(out: _Out, key: str, p: Mapping, s: Mapping) -> None:
+    """flax `VoVNet` -> the reference's `stem.stem_{i}/…`,
+    `stage{s}.OSA{s}_{b+1}.{layers.{i},concat,ese}.…` keys."""
+    for i in (1, 2, 3):
+        unit = f"{key}.stem.stem_{i}"
+        out.conv_bn(f"{unit}/conv.weight", f"{unit}/norm", p[f"stem{i}"],
+                    s[f"stem{i}"])
+    for st, b in _numbered(p, r"stage(\d+)_block(\d+)"):
+        bp, bs = p[f"stage{st}_block{b}"], s[f"stage{st}_block{b}"]
+        name = f"OSA{st}_{b + 1}"
+        mod = f"{key}.stage{st}.{name}"
+        for (i,) in _numbered(bp, r"conv(\d+)"):
+            unit = f"{mod}.layers.{i}.{name}_{i}"
+            out.conv_bn(f"{unit}/conv.weight", f"{unit}/norm", bp[f"conv{i}"],
+                        bs[f"conv{i}"])
+        unit = f"{mod}.concat.{name}_concat"
+        out.conv_bn(f"{unit}/conv.weight", f"{unit}/norm", bp["concat"],
+                    bs["concat"])
+        out.put(f"{mod}.ese.fc.weight", _conv(bp["ese"]["fc"]["kernel"]))
+        out.put(f"{mod}.ese.fc.bias", bp["ese"]["fc"]["bias"])
+
+
+def _cpfpn(out: _Out, key: str, p: Mapping) -> None:
+    for (i,) in _numbered(p, r"lateral(\d+)"):
+        out.put(f"{key}.lateral_convs.{i}.conv.weight",
+                _conv(p[f"lateral{i}"]["kernel"]))
+        out.put(f"{key}.lateral_convs.{i}.conv.bias", p[f"lateral{i}"]["bias"])
+    out.put(f"{key}.fpn_convs.0.conv.weight", _conv(p["fpn0"]["kernel"]))
+    out.put(f"{key}.fpn_convs.0.conv.bias", p["fpn0"]["bias"])
+
+
 def _agent(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
+    if "img_backbone" in p:
+        _vovnet(out, pre + "img_backbone", p["img_backbone"],
+                s["img_backbone"])
+        _cpfpn(out, pre + "img_neck", p["img_neck"])
+    if "pts_middle_encoder" in p:
+        _lidar(out, pre, p, s)
+
+
+def _lidar(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
     ep, es = p["pts_middle_encoder"], s["pts_middle_encoder"]
     mp = pre + "pts_middle_encoder"
     out.put(f"{mp}.conv_input.0.weight", _sparse(ep["conv_input"]["conv"]
@@ -107,9 +154,8 @@ def _agent(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
     bp, bs = p["pts_backbone"], s["pts_backbone"]
     for i, j in _numbered(bp, r"block(\d+)_conv(\d+)"):
         key = f"{pre}pts_backbone.blocks.{i}"
-        cp, cs = bp[f"block{i}_conv{j}"], bs[f"block{i}_conv{j}"]
-        out.put(f"{key}.{3 * j}.weight", _conv(cp["Conv_0"]["kernel"]))
-        out.bn(f"{key}.{3 * j + 1}", cp["BatchNorm_0"], cs["BatchNorm_0"])
+        out.conv_bn(f"{key}.{3 * j}.weight", f"{key}.{3 * j + 1}",
+                    bp[f"block{i}_conv{j}"], bs[f"block{i}_conv{j}"])
 
     np_, ns = p["pts_neck"], s["pts_neck"]
     for (i,) in _numbered(np_, r"deblock(\d+)_bn"):
@@ -125,13 +171,14 @@ def _agent(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
 
 def _head(out: _Out, p: Mapping, s: Mapping) -> None:
     hd = "pts_bbox_head"
-    out.put(f"{hd}.shared_conv.conv.weight",
-            _conv(p["shared_conv"]["Conv_0"]["kernel"]))
-    out.bn(f"{hd}.shared_conv.bn", p["shared_conv"]["BatchNorm_0"],
-           s["shared_conv"]["BatchNorm_0"])
+    if "shared_conv" in p:
+        out.conv_bn(f"{hd}.shared_conv.conv.weight", f"{hd}.shared_conv.bn",
+                    p["shared_conv"], s["shared_conv"])
     out.put(f"{hd}.reference_points.weight", p["reference_points"])
-    out.linear(f"{hd}.bev_embedding.0", p["bev_embedding"]["Dense_0"])
-    out.linear(f"{hd}.bev_embedding.2", p["bev_embedding"]["Dense_1"])
+    for name in ("bev_embedding", "rv_embedding"):
+        if name in p:
+            out.linear(f"{hd}.{name}.0", p[name]["Dense_0"])
+            out.linear(f"{hd}.{name}.2", p[name]["Dense_1"])
     for (t,) in _numbered(p, r"task_heads_(\d+)"):
         th = p[f"task_heads_{t}"]
         for name in ("center", "height", "dim", "rot", "vel", "cls_logits"):
@@ -173,7 +220,8 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """flax `{"params", "batch_stats"}` (numpy leaves) -> state_dict of
     float32 CPU tensors, reference key layout (coop prefixes
     `vehicle_model.` / `infrastructure_model.`; single-agent extractor keys
-    at the top level)."""
+    at the top level). A tree without `pts_bbox_head` gives the extractor's
+    keys alone."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out = _Out()
@@ -184,5 +232,6 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             _agent(out, a + ".", params[a], stats[a])
     else:
         _agent(out, "", params["extractor"], stats["extractor"])
-    _head(out, params["pts_bbox_head"], stats.get("pts_bbox_head", {}))
+    if "pts_bbox_head" in params:
+        _head(out, params["pts_bbox_head"], stats.get("pts_bbox_head", {}))
     return out.sd

@@ -1,5 +1,5 @@
-"""Sin/cos position encodings (counterpart of cmtcoop_tpu/core/pos_embed.py),
-the BEV subset."""
+"""Sin/cos position encodings and the camera-frustum grids of the RV
+position encoding (counterpart of cmtcoop_tpu/core/pos_embed.py)."""
 from __future__ import annotations
 
 import math
@@ -59,3 +59,27 @@ def bev_pos2embed_grid(grid_size_xy, downsample_scale: int,
         e_y[:, None, :].expand(y_size, x_size, num_pos_feats),
         e_x[None, :, :].expand(y_size, x_size, num_pos_feats)], dim=-1)
     return table.reshape(y_size * x_size, 2 * num_pos_feats)
+
+
+def depth_bins(depth_num: int, max_range: float, device=None) -> torch.Tensor:
+    """The shared depth-bin ladder 1 + d * (max_range - 1) / depth_num."""
+    return 1.0 + torch.arange(depth_num, dtype=torch.float32,
+                              device=device) * (max_range - 1.0) / depth_num
+
+
+def frustum_coords(feat_hw, pad_hw, depth_num: int, max_range: float,
+                   device=None) -> torch.Tensor:
+    """(H, W, D, 4) homogeneous frustum samples (u*d, v*d, d, 1) for the RV
+    position encoding: (u, v) the feature cells' pixel positions scaled to
+    the padded image, d the depth bins."""
+    h, w = feat_hw
+    pad_h, pad_w = pad_hw
+    coords_h = torch.arange(h, dtype=torch.float32, device=device) \
+        * pad_h / h
+    coords_w = torch.arange(w, dtype=torch.float32, device=device) \
+        * pad_w / w
+    dd = depth_bins(depth_num, max_range, device)[None, None, :].expand(
+        h, w, depth_num)
+    hh = coords_h[:, None, None].expand(h, w, depth_num)
+    ww = coords_w[None, :, None].expand(h, w, depth_num)
+    return torch.stack([ww * dd, hh * dd, dd, torch.ones_like(dd)], dim=-1)

@@ -1,7 +1,8 @@
 """Synthetic cooperative batches, numpy only: the clouds and layout of the
 JAX package's benchmark batch (`__graft_entry__._raycast_cloud` and
 `_coop_batch`), drawing from the generator in the same order, so one seed
-gives the same clouds in both packages."""
+gives the same clouds in both packages; and the small batches of the port's
+parity checks."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -103,4 +104,38 @@ def small_coop_batch() -> Dict[str, np.ndarray]:
     b = {k: v for k, v in b.items() if "points" in k}
     for a in ("vehicle_", "infrastructure_"):
         b[a + "points"][..., :3] *= 0.2
+    return b
+
+
+def pinhole_lidar2img(h: int, w: int, yaw: float) -> np.ndarray:
+    """(4, 4) lidar -> image projection of a pinhole camera at the lidar's
+    origin looking along the lidar x axis turned by `yaw` about z, with
+    fx = fy = w/2 and the principal point at the image centre: a point at
+    (x, y, z) maps to (u*d, v*d, d, 1), depth d along the view."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    # lidar -> camera axes: right = -y', down = -z, forward = x'
+    rot = np.array([[s, -c, 0.0], [0.0, 0.0, -1.0], [c, s, 0.0]])
+    k = np.array([[w / 2, 0.0, w / 2], [0.0, w / 2, h / 2], [0.0, 0.0, 1.0]])
+    l2i = np.eye(4)
+    l2i[:3, :3] = k @ rot
+    return l2i.astype(np.float32)
+
+
+def small_fusion_batch() -> Dict[str, np.ndarray]:
+    """The batch of the small cooperative fusion detector's checks
+    (configs/presets.py `SMALL_FUSION_*`): the clouds of
+    `small_coop_batch()`, plus 64x128 images (seed 1) from 1 vehicle view
+    looking along +x and 2 infrastructure views looking along +x and -x,
+    each a `pinhole_lidar2img` camera (a 90 degree horizontal field of view,
+    so some queries land in an image and some in none), and their
+    inverses as `img2lidar`."""
+    h, w = 64, 128
+    b = small_coop_batch()
+    rng = np.random.default_rng(1)
+    for a, yaws in (("vehicle_", (0.0,)), ("infrastructure_", (0.0, np.pi))):
+        b[a + "imgs"] = rng.normal(
+            size=(1, len(yaws), h, w, 3)).astype(np.float32)
+        l2i = np.stack([pinhole_lidar2img(h, w, y) for y in yaws])[None]
+        b[a + "lidar2img"] = l2i
+        b[a + "img2lidar"] = np.linalg.inv(l2i).astype(np.float32)
     return b

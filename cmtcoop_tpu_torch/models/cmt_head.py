@@ -1,28 +1,43 @@
-"""CMT detection head, eval, LiDAR BEV tokens only (counterpart of
-`CmtHead` in cmtcoop_tpu/models/cmt_head.py with `with_rv=False`).
+"""CMT detection head, eval (counterpart of `CmtHead` in
+cmtcoop_tpu/models/cmt_head.py).
 
-Per agent: `shared_conv` (kernel 4) on the BEV map, BEV tokens in row-major
-(y, x) order with the separable BEV position table, one 6-layer decoder
-pass; with several agents the per-layer decoder outputs are fused by an
-element-wise max after `nan_to_num` (the coop head). Then the grouped task
-heads. State keys follow the reference (`shared_conv.conv/bn`,
-`reference_points.weight`, `bev_embedding.{0,2}`, `transformer.decoder.*`,
+Per agent (`AgentInputs`): the token memory is the BEV tokens (`shared_conv`,
+kernel 4, in row-major (y, x) order, with the separable BEV position table)
+when `with_bev`, then the image tokens in (view, h, w) order with their
+frustum-ray position encoding (`_rv_pe`) when `with_rv`. The query
+position encoding is `bev_embedding(pos2embed(ref))`, plus the queries'
+back-projected rays summed over the views they land in (`_rv_query_embed`)
+when `with_rv`. One 6-layer decoder pass per agent; with several agents the
+per-layer decoder outputs are fused by an element-wise max after
+`nan_to_num` (the coop head). Then the grouped task heads. State keys follow
+the reference (`shared_conv.conv/bn`, `reference_points.weight`,
+`bev_embedding.{0,2}`, `rv_embedding.{0,2}`, `transformer.decoder.*`,
 `task_heads.{t}.{name}.{0,1,3}`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from cmtcoop_tpu_torch.core.boxes import inverse_sigmoid
-from cmtcoop_tpu_torch.core.pos_embed import bev_pos2embed_grid, pos2embed
+from cmtcoop_tpu_torch.core.boxes import inverse_sigmoid, normalize_01
+from cmtcoop_tpu_torch.core.pos_embed import (bev_pos2embed_grid, depth_bins,
+                                              frustum_coords, pos2embed)
 from cmtcoop_tpu_torch.models.layers import MLP, ConvBNReLU
 from cmtcoop_tpu_torch.models.petr_decoder import PETRTransformerDecoder
 
 COMMON_HEADS: Tuple[Tuple[str, int], ...] = (
     ("center", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
+
+
+class AgentInputs(NamedTuple):
+    """One agent's feature inputs to the head."""
+    bev_feat: Optional[torch.Tensor] = None   # (B, Hb, Wb, C_in)
+    img_feats: Optional[torch.Tensor] = None  # (B, V, Hf, Wf, C)
+    lidar2img: Optional[torch.Tensor] = None  # (B, V, 4, 4)
+    img2lidar: Optional[torch.Tensor] = None  # (B, V, 4, 4)
+    pad_hw: Optional[Tuple[int, int]] = None
 
 
 class GroupedDense(nn.Module):
@@ -81,34 +96,45 @@ class SeparateTaskHead(nn.ModuleDict):
 
 
 class CmtHead(nn.Module):
-    """Eval CmtHead over one or more agents' BEV maps (`with_rv=False`).
+    """Eval CmtHead over one or more agents: `with_bev` takes the LiDAR BEV
+    tokens, `with_rv` the image tokens (CmtLidarHead / CmtImageHead when
+    only one is set).
 
-    `max_gt`, `dn_groups` and `depth_num` are the JAX head's training and
-    camera settings; they are accepted so presets build, and unused here."""
+    `max_gt` and `dn_groups` are the JAX head's training settings; they are
+    accepted so presets build, and unused here."""
 
     def __init__(self, num_query: int = 900, hidden_dim: int = 256,
-                 in_channels: int = 512, downsample_scale: int = 8,
+                 in_channels: int = 512, depth_num: int = 64,
+                 downsample_scale: int = 8,
                  pc_range: Sequence[float] = (-72.0, -72.0, -8.0,
                                               72.0, 72.0, 0.0),
                  grid_size: Tuple[int, int] = (1440, 1440),
                  tasks: Sequence[Sequence[str]] = (
                      ("CAR", "TRAILER", "TRUCK", "VAN", "PEDESTRIAN", "BUS",
                       "BICYCLE"),),
+                 with_bev: bool = True, with_rv: bool = True,
                  num_decoder_layers: int = 6, num_heads: int = 8,
                  feedforward_channels: int = 1024,
-                 max_gt: int = 32, dn_groups: int = 5, depth_num: int = 64,
+                 max_gt: int = 32, dn_groups: int = 5,
                  compute_dtype=torch.float32):
         super().__init__()
-        del max_gt, dn_groups, depth_num
+        del max_gt, dn_groups
         self.hidden_dim = hidden_dim
+        self.depth_num = depth_num
         self.downsample_scale = downsample_scale
         self.pc_range = tuple(pc_range)
         self.grid_size = tuple(grid_size)
         self.tasks = tuple(tuple(t) for t in tasks)
+        self.with_bev, self.with_rv = with_bev, with_rv
         self.compute_dtype = compute_dtype
-        self.shared_conv = ConvBNReLU(in_channels, hidden_dim, eps=1e-5)
+        if with_bev:
+            self.shared_conv = ConvBNReLU(in_channels, hidden_dim, eps=1e-5)
+        # the query PE always takes bev_embedding, camera-only too
         self.bev_embedding = MLP(2 * hidden_dim, hidden_dim, hidden_dim,
                                  compute_dtype)
+        if with_rv:
+            self.rv_embedding = MLP(depth_num * 3, hidden_dim * 4,
+                                    hidden_dim, compute_dtype)
         self.reference_points = nn.Embedding(num_query, 3)
         self.transformer = nn.Module()
         self.transformer.decoder = PETRTransformerDecoder(
@@ -118,34 +144,97 @@ class CmtHead(nn.Module):
             SeparateTaskHead(len(names), num_decoder_layers, hidden_dim)
             for names in self.tasks])
 
-    def forward(self, bev_feats: Sequence[torch.Tensor]):
-        """bev_feats: one (B, Hb, Wb, C_in) map per agent. Returns
-        (task_outs, None): per task a dict of (L, B, Nq, ·) outputs (center
-        and height in metres), and no denoising info (eval)."""
-        batch = bev_feats[0].shape[0]
+    def forward(self, agents: Sequence[AgentInputs]):
+        """One `AgentInputs` per agent. Returns (task_outs, None): per task
+        a dict of (L, B, Nq, ·) outputs (center and height in metres), and
+        no denoising info (eval)."""
+        first = agents[0]
+        batch = (first.bev_feat if first.bev_feat is not None
+                 else first.img_feats).shape[0]
         ref = self.reference_points.weight
         padded_ref = ref[None].expand(batch, *ref.shape)
         ref01 = torch.sigmoid(inverse_sigmoid(padded_ref))
-        query_pos = self.bev_embedding(
+        bev_query_pos = self.bev_embedding(
             pos2embed(ref01, self.hidden_dim).to(self.compute_dtype))
-        outs_decs = [self.run_decoder(*self.build_memory(bev), query_pos)
-                     for bev in bev_feats]
+        outs_decs = []
+        for agent in agents:
+            memory, memory_pos = self.build_memory(agent)
+            query_pos = bev_query_pos
+            if self.with_rv:
+                query_pos = query_pos + self._rv_query_embed(
+                    ref01, agent.lidar2img, agent.img2lidar, agent.pad_hw)
+            outs_decs.append(self.run_decoder(memory, memory_pos, query_pos))
         if len(outs_decs) == 1:
             outs_dec = outs_decs[0]
         else:  # coop max fusion
             outs_dec = torch.stack(outs_decs, dim=0).amax(dim=0)
         return self.run_task_heads(outs_dec, padded_ref), None
 
-    def build_memory(self, bev: torch.Tensor):
-        """Token memory (B, Hb*Wb, C) in row-major (y, x) order + its PE."""
-        x = self.shared_conv(bev.to(self.compute_dtype))
-        b, hb, wb, c = x.shape
-        tokens = x.reshape(b, hb * wb, c)
-        table = bev_pos2embed_grid((self.grid_size[1], self.grid_size[0]),
-                                   self.downsample_scale, self.hidden_dim,
-                                   device=x.device)
-        bev_pos = self.bev_embedding(table.to(self.compute_dtype))
-        return tokens, bev_pos[None].expand(b, *bev_pos.shape)
+    def _rv_pe(self, feat_hw, pad_hw, img2lidar):
+        """(B, V, Hf, Wf, hidden) position encoding of the image tokens: the
+        frustum samples of each cell back-projected by img2lidar, in
+        [0, 1]^3, flattened in (depth, xyz) order, through rv_embedding."""
+        coords = frustum_coords(feat_hw, pad_hw, self.depth_num,
+                                self.pc_range[3], device=img2lidar.device)
+        pts = torch.einsum("hwdo,bvco->bvhwdc", coords, img2lidar.float())
+        pts01 = normalize_01(pts[..., :3], self.pc_range)
+        flat = pts01.reshape(*pts01.shape[:-2], self.depth_num * 3)
+        return self.rv_embedding(flat.to(self.compute_dtype))
+
+    def project_queries(self, ref01, lidar2img, pad_hw):
+        """Queries (B, N, 3) in [0, 1] projected into every view: (uvz,
+        in_img), uvz (B, V, N, 4) with the first three components divided
+        by z +- 1e-6 (by the sign of z), in_img (B, V, N) true where
+        0 <= u < pad_w, 0 <= v < pad_h and z > 0."""
+        pad_h, pad_w = pad_hw
+        lo = ref01.new_tensor(self.pc_range[:3])
+        hi = ref01.new_tensor(self.pc_range[3:])
+        pts = ref01 * (hi - lo) + lo
+        pts_h = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+        proj = torch.einsum("bnd,bvcd->bvnc", pts_h, lidar2img.float())
+        z = proj[..., 2:3]
+        z_pos = z > 0.0
+        denom = z + torch.where(z_pos, 1e-6, -1e-6)
+        uvz = torch.cat([proj[..., :3] / denom, proj[..., 3:]], dim=-1)
+        u, v = uvz[..., 0], uvz[..., 1]
+        in_img = ((u >= 0) & (u < pad_w) & (v >= 0) & (v < pad_h)
+                  & z_pos[..., 0])
+        return uvz, in_img
+
+    def _rv_query_embed(self, ref01, lidar2img, img2lidar, pad_hw):
+        """Each query projected into every view, back-projected along the
+        depth bins, embedded, masked to the views it lands in and summed
+        over the views: (B, N, hidden)."""
+        uvz, in_img = self.project_queries(ref01, lidar2img, pad_hw)
+        dbins = depth_bins(self.depth_num, self.pc_range[3], uvz.device)
+        ray = uvz[..., None, :3] * dbins[:, None]
+        ray = torch.cat([ray, torch.ones_like(ray[..., :1])], dim=-1)
+        back = torch.einsum("bvndo,bvco->bvndc", ray, img2lidar.float())
+        back01 = normalize_01(back[..., :3], self.pc_range)
+        flat = back01.reshape(*back01.shape[:-2], self.depth_num * 3)
+        emb = self.rv_embedding(flat.to(self.compute_dtype))
+        return (emb * in_img[..., None].to(emb.dtype)).sum(dim=1)
+
+    def build_memory(self, agent: AgentInputs):
+        """Token memory (B, T, C) and its PE: the BEV tokens in row-major
+        (y, x) order, then the image tokens in (view, h, w) order."""
+        mem, pos = [], []
+        if self.with_bev:
+            x = self.shared_conv(agent.bev_feat.to(self.compute_dtype))
+            b, hb, wb, c = x.shape
+            mem.append(x.reshape(b, hb * wb, c))
+            table = bev_pos2embed_grid((self.grid_size[1], self.grid_size[0]),
+                                       self.downsample_scale, self.hidden_dim,
+                                       device=x.device)
+            bev_pos = self.bev_embedding(table.to(self.compute_dtype))
+            pos.append(bev_pos[None].expand(b, *bev_pos.shape))
+        if self.with_rv:
+            b, v, hf, wf, c = agent.img_feats.shape
+            mem.append(agent.img_feats.reshape(b, v * hf * wf, c).to(
+                self.compute_dtype))
+            rv_pos = self._rv_pe((hf, wf), agent.pad_hw, agent.img2lidar)
+            pos.append(rv_pos.reshape(b, v * hf * wf, self.hidden_dim))
+        return torch.cat(mem, dim=1), torch.cat(pos, dim=1)
 
     def run_decoder(self, memory, memory_pos, query_pos):
         target = torch.zeros_like(query_pos)

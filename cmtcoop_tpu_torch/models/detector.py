@@ -1,8 +1,8 @@
-"""CMT detectors, eval, LiDAR branch (counterpart of
-cmtcoop_tpu/models/detector.py).
+"""CMT detectors, eval (counterpart of cmtcoop_tpu/models/detector.py).
 
 Batch dicts as in the JAX package: `points` (B, N, 5) float32 zero-padded,
-`points_mask` (B, N) bool; cooperative batches carry `vehicle_` and
+`points_mask` (B, N) bool, `imgs` (B, V, H, W, 3) float32, `lidar2img` and
+`img2lidar` (B, V, 4, 4); cooperative batches carry `vehicle_` and
 `infrastructure_` prefixes.
 """
 from __future__ import annotations
@@ -12,22 +12,25 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from cmtcoop_tpu_torch.models.cmt_head import CmtHead
+from cmtcoop_tpu_torch.models.cmt_head import AgentInputs, CmtHead
 from cmtcoop_tpu_torch.models.pillar_encoder import PillarSparseEncoder
 from cmtcoop_tpu_torch.models.second import SECOND, SECONDFPN
+from cmtcoop_tpu_torch.models.vovnet import CPFPN, VoVNet
 from cmtcoop_tpu_torch.ops.pillars import pillarize
 
-# FeatureExtractor settings of the camera branch and of the gather encoder,
-# which this package does not port yet: presets carry them, so they are
-# accepted and must not select those paths.
-NOT_PORTED_KEYS = ("img_spec", "img_out_features", "neck_out_channels",
-                   "use_grid_mask", "img_impl", "sparse_stage_caps")
+# FeatureExtractor settings that select nothing at eval here: grid mask
+# (training only), the JAX package's TPU image-layout switch, and the gather
+# encoder's caps (that encoder is not ported). Presets carry them, so they
+# are accepted and have no effect.
+NOT_PORTED_KEYS = ("use_grid_mask", "img_impl", "sparse_stage_caps")
 
 
 class FeatureExtractor(nn.Module):
-    """Per-agent LiDAR feature extractor: pillarize -> PillarSparseEncoder
-    -> SECOND -> SECONDFPN, giving the (B, H/8, W/8, 512) BEV map. State
-    keys `pts_middle_encoder.*`, `pts_backbone.*`, `pts_neck.*`."""
+    """Per-agent feature extractor. LiDAR (`use_lidar`): pillarize ->
+    PillarSparseEncoder -> SECOND -> SECONDFPN, giving the (B, H/8, W/8, 512)
+    BEV map (state `pts_middle_encoder.*`, `pts_backbone.*`, `pts_neck.*`).
+    Camera (`use_camera`): VoVNet -> CPFPN, level 0 (stride 16) per view
+    (state `img_backbone.*`, `img_neck.*`)."""
 
     def __init__(self, use_lidar: bool = True, use_camera: bool = False,
                  voxel_size: Tuple[float, float, float] = (0.1, 0.1, 0.2),
@@ -44,33 +47,51 @@ class FeatureExtractor(nn.Module):
                  second_channels: Sequence[int] = (128, 256),
                  second_layers: Sequence[int] = (5, 5),
                  fpn_channels: Sequence[int] = (256, 256),
+                 img_spec: str = "V-99-eSE",
+                 img_out_features: Sequence[str] = ("stage4", "stage5"),
+                 neck_out_channels: int = 256,
                  compute_dtype=torch.float32, **not_ported):
         super().__init__()
         unknown = set(not_ported) - set(NOT_PORTED_KEYS)
         if unknown:
             raise TypeError(f"unexpected extractor settings {sorted(unknown)}")
-        if use_camera or not use_lidar or encoder_impl != "pillar":
-            raise NotImplementedError(
-                "only the LiDAR branch with the pillar encoder is ported")
-        self.voxel_size = tuple(voxel_size)
-        self.pc_range = tuple(pc_range)
-        self.grid_size = tuple(grid_size)
-        self.max_points_per_voxel = max_points_per_voxel
-        self.max_voxels = max_voxels
-        self.pillar_caps = tuple(pillar_caps)
+        if not (use_lidar or use_camera):
+            raise ValueError("an extractor needs the LiDAR or the camera "
+                             "branch")
+        self.use_lidar, self.use_camera = use_lidar, use_camera
         self.compute_dtype = compute_dtype
-        z = grid_size[2] + 1
-        self.pts_middle_encoder = PillarSparseEncoder(
-            5, (z, grid_size[1], grid_size[0]), sparse_base_channels,
-            sparse_channels, sparse_out_channels, pillar_caps)
-        levels = len(sparse_channels)
-        z_out = z
-        for zp in (1, 1, 0)[:levels - 1]:
-            z_out = (z_out + 2 * zp - 3) // 2 + 1
-        z_out = (z_out - 3) // 2 + 1
-        self.pts_backbone = SECOND(sparse_out_channels * z_out,
-                                   second_channels, second_layers)
-        self.pts_neck = SECONDFPN(second_channels, fpn_channels)
+        if use_camera:
+            if img_spec.startswith("r"):
+                raise NotImplementedError(
+                    f"the ResNet image backbone ({img_spec}) is not ported")
+            self.img_out_features = tuple(img_out_features)
+            self.img_backbone = VoVNet(img_spec, self.img_out_features)
+            self.img_neck = CPFPN(
+                [self.img_backbone.out_channels[k]
+                 for k in self.img_out_features], neck_out_channels,
+                num_outs=2)
+        if use_lidar:
+            if encoder_impl != "pillar":
+                raise NotImplementedError(
+                    "only the pillar encoder of the LiDAR branch is ported")
+            self.voxel_size = tuple(voxel_size)
+            self.pc_range = tuple(pc_range)
+            self.grid_size = tuple(grid_size)
+            self.max_points_per_voxel = max_points_per_voxel
+            self.max_voxels = max_voxels
+            self.pillar_caps = tuple(pillar_caps)
+            z = grid_size[2] + 1
+            self.pts_middle_encoder = PillarSparseEncoder(
+                5, (z, grid_size[1], grid_size[0]), sparse_base_channels,
+                sparse_channels, sparse_out_channels, pillar_caps)
+            levels = len(sparse_channels)
+            z_out = z
+            for zp in (1, 1, 0)[:levels - 1]:
+                z_out = (z_out + 2 * zp - 3) // 2 + 1
+            z_out = (z_out - 3) // 2 + 1
+            self.pts_backbone = SECOND(sparse_out_channels * z_out,
+                                       second_channels, second_layers)
+            self.pts_neck = SECONDFPN(second_channels, fpn_channels)
 
     def pillarize(self, points, points_mask, return_stats: bool = False):
         """One sample's cloud -> pillars, with this extractor's settings."""
@@ -88,21 +109,40 @@ class FeatureExtractor(nn.Module):
             for p, m in zip(points, points_mask)])
         return self.pts_neck(self.pts_backbone(bev))
 
+    def extract_img_feat(self, imgs) -> torch.Tensor:
+        """(B, V, H, W, 3) images -> (B, V, H/16, W/16, C) CPFPN level 0."""
+        b, v, h, w, c = imgs.shape
+        x = imgs.reshape(b * v, h, w, c).to(self.compute_dtype).contiguous()
+        feats = self.img_backbone(x)
+        f0 = self.img_neck([feats[k] for k in self.img_out_features])[0]
+        return f0.reshape(b, v, *f0.shape[1:])
+
     def extract(self, batch: Dict[str, torch.Tensor],
-                prefix: str = "") -> torch.Tensor:
-        return self.extract_pts_feat(batch[prefix + "points"],
-                                     batch[prefix + "points_mask"])
+                prefix: str = "") -> AgentInputs:
+        bev_feat = img_feats = pad_hw = None
+        if self.use_lidar:
+            bev_feat = self.extract_pts_feat(batch[prefix + "points"],
+                                             batch[prefix + "points_mask"])
+        if self.use_camera:
+            imgs = batch[prefix + "imgs"]
+            pad_hw = (imgs.shape[2], imgs.shape[3])
+            img_feats = self.extract_img_feat(imgs)
+        return AgentInputs(bev_feat, img_feats,
+                           batch.get(prefix + "lidar2img"),
+                           batch.get(prefix + "img2lidar"), pad_hw)
 
     def forward(self, batch, prefix: str = ""):
         return self.extract(batch, prefix)
 
 
-def _head(ek: Dict, hk: Dict, compute_dtype) -> CmtHead:
+def _head(use_lidar: bool, use_camera: bool, ek: Dict, hk: Dict,
+          compute_dtype) -> CmtHead:
     hk = dict(hk)
     hk.setdefault("in_channels", 512)
     return CmtHead(pc_range=ek.get("pc_range", (-72.0, -72.0, -8.0,
                                                 72.0, 72.0, 0.0)),
                    grid_size=tuple(ek.get("grid_size", (1440, 1440))[:2]),
+                   with_bev=use_lidar, with_rv=use_camera,
                    compute_dtype=compute_dtype, **hk)
 
 
@@ -116,7 +156,8 @@ class CmtDetector(FeatureExtractor):
         ek = dict(extractor_kwargs or {})
         super().__init__(use_lidar, use_camera, compute_dtype=compute_dtype,
                          **ek)
-        self.pts_bbox_head = _head(ek, head_kwargs or {}, compute_dtype)
+        self.pts_bbox_head = _head(use_lidar, use_camera, ek,
+                                   head_kwargs or {}, compute_dtype)
 
     def forward(self, batch):
         return self.pts_bbox_head([self.extract(batch)])
@@ -140,9 +181,10 @@ class CmtCoopDetector(nn.Module):
                 raise ValueError(f"unknown agent {a!r}")
             self.add_module(f"{a}_model", FeatureExtractor(
                 use_lidar, use_camera, compute_dtype=compute_dtype, **ek))
-        self.pts_bbox_head = _head(ek, head_kwargs or {}, compute_dtype)
+        self.pts_bbox_head = _head(use_lidar, use_camera, ek,
+                                   head_kwargs or {}, compute_dtype)
 
     def forward(self, batch):
-        bevs = [getattr(self, f"{a}_model").extract(batch, f"{a}_")
-                for a in self.agents]
-        return self.pts_bbox_head(bevs)
+        return self.pts_bbox_head([
+            getattr(self, f"{a}_model").extract(batch, f"{a}_")
+            for a in self.agents])

@@ -1,9 +1,10 @@
-"""Where the time of the port's main path goes, read from one
+"""Where the time of one of the port's main paths goes, read from one
 `torch.profiler` trace on the card:
 
-    python -m cmtcoop_tpu_torch.profile_path [--out DIR]
+    python -m cmtcoop_tpu_torch.profile_path [--preset NAME] [--out DIR]
 
-Builds the full-width main path (main_path.py), runs one frame to warm up,
+Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
+flagship `cmt_fusion_coop_tumtraf` by default), runs one frame to warm up,
 then traces 3 frames. From that one trace it reads, per frame:
 
 - `frame_ms`: the host span of a frame, from its start to its
@@ -14,8 +15,9 @@ then traces 3 frames. From that one trace it reads, per frame:
   and memset intervals inside the frame spans, and the share of the spans
   it leaves idle;
 - `stage_device_ms`: the device time of each stage, each device op charged
-  to the stage whose host span launched it (`other`: the query embedding,
-  the fusion and the decode);
+  to the stage whose host span launched it (`rv pe`: the image tokens' and
+  the queries' RV position encodings; `other`: the BEV query embedding, the
+  fusion and the decode);
 - `top_kernels_ms`: the device time of the busiest kernels by name.
 
 It prints the summary as JSON and writes it, with the Chrome trace, to
@@ -37,13 +39,18 @@ from cmtcoop_tpu_torch import main_path
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-# host span name -> (module attribute path, method), per agent or on the head
-AGENT_STAGES = {"pillarize": ("", "pillarize"),
+# host span name -> (module attribute, method), per agent; an extractor
+# without the module (a LiDAR-only or camera-only model) has no such span
+AGENT_STAGES = {"image backbone": ("img_backbone", "forward"),
+                "image neck": ("img_neck", "forward"),
+                "pillarize": ("", "pillarize"),
                 "pillar encoder": ("pts_middle_encoder", "forward"),
                 "SECOND": ("pts_backbone", "forward"),
                 "FPN": ("pts_neck", "forward")}
-HEAD_STAGES = {"head memory": "build_memory", "decoder": "run_decoder",
-               "task heads": "run_task_heads"}
+# host span name -> the head's methods
+HEAD_STAGES = {"head memory": ("build_memory",),
+               "rv pe": ("_rv_pe", "_rv_query_embed"),
+               "decoder": ("run_decoder",), "task heads": ("run_task_heads",)}
 STAGES = tuple(AGENT_STAGES) + tuple(HEAD_STAGES)
 N_FRAMES = 3
 
@@ -61,11 +68,13 @@ def instrument(model) -> None:
     for agent in model.agents:
         ext = getattr(model, f"{agent}_model")
         for name, (sub, method) in AGENT_STAGES.items():
-            obj = getattr(ext, sub) if sub else ext
-            setattr(obj, method, _spanned(name, getattr(obj, method)))
+            obj = getattr(ext, sub, None) if sub else ext
+            if obj is not None:
+                setattr(obj, method, _spanned(name, getattr(obj, method)))
     head = model.pts_bbox_head
-    for name, method in HEAD_STAGES.items():
-        setattr(head, method, _spanned(name, getattr(head, method)))
+    for name, methods in HEAD_STAGES.items():
+        for method in methods:
+            setattr(head, method, _spanned(name, getattr(head, method)))
 
 
 def _union_ms(intervals) -> float:
@@ -122,12 +131,15 @@ def summarize(trace: dict, n_frames: int) -> dict:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--preset", default=main_path.FUSION_PRESET,
+                        choices=main_path.PATHS)
     parser.add_argument("--out", default=str(
         Path(__file__).resolve().parents[1] / "build" / "profile"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: needs a CUDA device")
-    model, batch = main_path.build_main_path(torch.device("cuda"))
+    model, batch = main_path.build_main_path(torch.device("cuda"),
+                                             args.preset)
     instrument(model)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -146,6 +158,7 @@ def main(argv=None) -> dict:
     trace_path = out / "trace.json"
     prof.export_chrome_trace(str(trace_path))
     summary = summarize(json.loads(trace_path.read_text()), N_FRAMES)
+    summary["preset"] = args.preset
     summary["untraced_frame_ms"] = untraced_ms
     summary["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

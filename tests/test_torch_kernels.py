@@ -14,17 +14,24 @@ import numpy as np
 import pytest
 import torch
 
-from cmtcoop_tpu_torch import _build, profile_path
+from cmtcoop_tpu_torch import _build, main_path, profile_path
 from cmtcoop_tpu_torch.configs.presets import (SMALL_COOP_EXTRACTOR,
                                                SMALL_COOP_HEAD,
-                                               SMALL_COOP_PRESET, tiny_preset)
-from cmtcoop_tpu_torch.data.synthetic import small_coop_batch
+                                               SMALL_COOP_PRESET,
+                                               SMALL_FUSION_EXTRACTOR,
+                                               SMALL_FUSION_HEAD,
+                                               SMALL_FUSION_PRESET,
+                                               tiny_preset)
+from cmtcoop_tpu_torch.data.synthetic import (small_coop_batch,
+                                              small_fusion_batch)
 from cmtcoop_tpu_torch.models.build import build_detector, random_init_
 from cmtcoop_tpu_torch.ops import pillars as pu
 from cmtcoop_tpu_torch.ops.attention import (NEG_INF, flash_attention_packed,
                                              flash_attention_packed_reference)
 from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
-                                           conv3x3_bn_relu_reference)
+                                           conv3x3_bn_relu_reference,
+                                           osa_aggregate,
+                                           osa_aggregate_reference)
 from cmtcoop_tpu_torch.ops.pillar_fused import (fused_pillar_conv,
                                                 fused_pillar_conv_reference)
 
@@ -37,6 +44,12 @@ def slice_model(agents=("vehicle", "infrastructure")):
     return build_detector(SLICE_PRESET,
                           extractor_kwargs=SMALL_COOP_EXTRACTOR,
                           head_kwargs=SMALL_COOP_HEAD, agents=agents)
+
+
+def fusion_slice_model():
+    return build_detector(tiny_preset(**SMALL_FUSION_PRESET),
+                          extractor_kwargs=SMALL_FUSION_EXTRACTOR,
+                          head_kwargs=SMALL_FUSION_HEAD)
 
 
 def cuda_device():
@@ -55,7 +68,12 @@ def _assert_close(got, ref, tol):
     ref = ref if isinstance(ref, tuple) else (ref,)
     for g, r in zip(got[1:], ref[1:]):
         assert torch.equal(g, r)
-    g, r = got[0].float(), ref[0].float()
+    _assert_rel(got[0], ref[0], tol)
+
+
+def _assert_rel(got, ref, tol):
+    """max |got - ref| <= tol * max |ref|, same shape."""
+    g, r = got.float(), ref.float()
     assert g.shape == r.shape
     err = float((g - r).abs().max())
     assert err <= tol * float(r.abs().max()), err
@@ -81,6 +99,16 @@ def test_wrappers_refuse_devices_without_a_kernel():
                         torch.zeros(4, 2, 3, 3, device=meta),
                         torch.ones(4, device=meta),
                         torch.zeros(4, device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        conv3x3_bn_relu(torch.zeros(1, 3, 3, 2, device=meta),
+                        torch.zeros(4, 2, 3, 3, device=meta),
+                        torch.ones(4, device=meta),
+                        torch.zeros(4, device=meta),
+                        residual=torch.zeros(1, 3, 3, 4, device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        osa_aggregate([torch.zeros(1, 3, 3, 2, device=meta)] * 2,
+                      torch.zeros(4, 5, device=meta),
+                      torch.ones(5, device=meta), torch.zeros(5, device=meta))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -96,6 +124,21 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(
         conv3x3_bn_relu(x, w, torch.ones(6), torch.zeros(6)),
         conv3x3_bn_relu_reference(x, w, torch.ones(6), torch.zeros(6)))
+    r = torch.from_numpy(rng.normal(size=(1, 4, 5, 6)).astype(np.float32))
+    got = conv3x3_bn_relu(x, w, torch.ones(6), torch.zeros(6), residual=r)
+    torch.testing.assert_close(got, conv3x3_bn_relu_reference(
+        x, w, torch.ones(6), torch.zeros(6), residual=r))
+    assert not torch.equal(got, conv3x3_bn_relu(x, w, torch.ones(6),
+                                                torch.zeros(6)))
+    parts = [torch.from_numpy(rng.normal(size=(2, 4, 5, c)).astype(
+        np.float32)) for c in (3, 2, 2)]
+    wa = torch.from_numpy(rng.normal(size=(7, 6)).astype(np.float32))
+    s, b = torch.full((6,), 0.5), torch.full((6,), 0.1)
+    agg, gap = osa_aggregate(parts, wa, s, b)
+    ref_agg, ref_gap = osa_aggregate_reference(parts, wa, s, b)
+    torch.testing.assert_close(agg, ref_agg)
+    torch.testing.assert_close(gap, ref_gap)
+    torch.testing.assert_close(gap, agg.sum(dim=(1, 2)))
     assert _build.launch_counts == before
 
 
@@ -106,7 +149,8 @@ def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path() != a
     assert {p.name for p in _build.sources()} >= {
-        "pillar_conv.cu", "flash_attention.cu", "conv3x3.cu", "common.cuh"}
+        "pillar_conv.cu", "flash_attention.cu", "conv3x3.cu", "osa_agg.cu",
+        "common.cuh"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -159,9 +203,9 @@ def test_profile_summary_reads_one_trace():
 
 
 def test_profile_spans_leave_the_model_unchanged():
-    model = slice_model()
+    model = fusion_slice_model()
     random_init_(model, torch.Generator().manual_seed(2))
-    batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
+    batch = {k: torch.from_numpy(v) for k, v in small_fusion_batch().items()}
     with torch.inference_mode():
         ref, _ = model(batch)
         profile_path.instrument(model)
@@ -196,6 +240,29 @@ def test_single_agent_detector_equals_coop_vehicle_only():
     for o, r in zip(got, ref):
         for key in r:
             torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
+
+
+def test_detector_settings_without_effect_and_the_resnet_backbone():
+    """`use_grid_mask` (training only) and `img_impl` (a TPU layout switch)
+    are accepted and change nothing; a ResNet `img_spec` is refused."""
+    ref = fusion_slice_model()
+    random_init_(ref, torch.Generator().manual_seed(3))
+    other = build_detector(tiny_preset(**SMALL_FUSION_PRESET),
+                           extractor_kwargs=dict(SMALL_FUSION_EXTRACTOR,
+                                                 use_grid_mask=True,
+                                                 img_impl="xla"),
+                           head_kwargs=SMALL_FUSION_HEAD)
+    other.load_state_dict(ref.state_dict(), strict=True)
+    b = {k: torch.from_numpy(v) for k, v in small_fusion_batch().items()}
+    with torch.inference_mode():
+        for o, r in zip(other(b)[0], ref(b)[0]):
+            for key in r:
+                torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="ResNet"):
+        build_detector(tiny_preset(**SMALL_FUSION_PRESET),
+                       extractor_kwargs=dict(SMALL_FUSION_EXTRACTOR,
+                                             img_spec="r50"),
+                       head_kwargs=SMALL_FUSION_HEAD)
 
 
 # ------------------------------- on the card -------------------------------
@@ -288,24 +355,87 @@ def test_conv_kernel_matches_plain(dtype, tol, shape):
 
 
 @pytest.mark.cuda
-def test_slice_on_card_matches_cpu():
-    """The small detector with seeded weights: the card's forward (all four
-    kernels, float32) against the CPU's (plain versions), rtol = atol =
-    1e-3."""
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 20, 30, 160, 160), (2, 7, 13, 24, 40)])
+def test_conv_residual_kernel_matches_plain(dtype, tol, shape):
+    """Kernel 5: a ragged pixel tile (M % 128 != 0) and Cout not a multiple
+    of the 128-wide tile in both shapes."""
     dev = cuda_device()
-    cpu = slice_model()
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype)
+    wt = torch.randn(cout, cin, 3, 3, generator=g, device=dev) \
+        / (9 * cin) ** 0.5
+    s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
+    res = torch.randn(b, h, w, cout, generator=g, device=dev).to(dtype)
+    before = dict(_build.launch_counts)
+    _assert_close(conv3x3_bn_relu(x, wt, s, bb, residual=res),
+                  conv3x3_bn_relu_reference(x, wt, s, bb, residual=res), tol)
+    assert _build.launch_counts["conv3x3_bn_relu_resid"] == \
+        before["conv3x3_bn_relu_resid"] + 1
+    assert _build.launch_counts["conv3x3_bn_relu"] == \
+        before["conv3x3_bn_relu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("v,h,w,chans,cout", [
+    (3, 20, 50, (256, 80, 80, 80, 80, 80), 200),
+    (2, 7, 13, (24, 16), 40)])
+def test_osa_aggregate_kernel_matches_plain(dtype, tol, v, h, w, chans,
+                                            cout):
+    """Kernel 6: ragged pixel tiles inside each view (H*W % 128 != 0), Cout
+    not a multiple of 128, 6 and 2 parts; agg and the float32 gap, each
+    against max |plain|."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    parts = [torch.randn(v, h, w, c, generator=g, device=dev).to(dtype)
+             for c in chans]
+    wt = torch.randn(sum(chans), cout, generator=g, device=dev) \
+        / sum(chans) ** 0.5
+    s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
+    before = _build.launch_counts["osa_aggregate"]
+    agg, gap = osa_aggregate(parts, wt, s, bb)
+    ref_agg, ref_gap = osa_aggregate_reference(parts, wt, s, bb)
+    assert _build.launch_counts["osa_aggregate"] == before + 1
+    assert agg.dtype == dtype and gap.dtype == torch.float32
+    _assert_rel(agg, ref_agg, tol)
+    _assert_rel(gap, ref_gap, tol)
+
+
+def _on_card_matches_cpu(model_fn, batch, kernels):
+    dev = cuda_device()
+    cpu = model_fn()
     random_init_(cpu, torch.Generator().manual_seed(0))
-    gpu = slice_model()
+    gpu = model_fn()
     gpu.load_state_dict(cpu.state_dict())
     gpu.to(dev)
-    batch = small_coop_batch()
     _build.reset_counts()
     with torch.inference_mode():
         ref, _ = cpu({k: torch.from_numpy(v) for k, v in batch.items()})
         got, _ = gpu({k: torch.from_numpy(v).to(dev)
                       for k, v in batch.items()})
-    assert min(_build.launch_counts.values()) > 0
+    assert {k for k, n in _build.launch_counts.items() if n} == set(kernels)
     for o, r in zip(got, ref):
         for key in r:
             torch.testing.assert_close(o[key].cpu(), r[key], rtol=1e-3,
                                        atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_slice_on_card_matches_cpu():
+    """The small LiDAR detector with seeded weights: the card's forward
+    (kernels 1 to 4, float32) against the CPU's (plain versions), rtol =
+    atol = 1e-3."""
+    _on_card_matches_cpu(slice_model, small_coop_batch(),
+                         main_path.PATH_KERNELS[main_path.PRESET])
+
+
+@pytest.mark.cuda
+def test_fusion_slice_on_card_matches_cpu():
+    """The small fusion detector: kernels 1 to 4 and 6 on the card against
+    the plain versions on the CPU, float32, rtol = atol = 1e-3."""
+    _on_card_matches_cpu(fusion_slice_model, small_fusion_batch(),
+                         main_path.PATH_KERNELS[main_path.FUSION_PRESET])

@@ -17,12 +17,13 @@ import torch
 
 from cmtcoop_tpu.configs.presets import tiny_preset as jtiny_preset
 from cmtcoop_tpu.models.build import build_detector as jbuild
-from cmtcoop_tpu.models.cmt_head import AgentInputs
+from cmtcoop_tpu.models.cmt_head import AgentInputs as JAgentInputs
 from cmtcoop_tpu_torch.configs.presets import (SMALL_COOP_EXTRACTOR,
                                                SMALL_COOP_HEAD,
                                                SMALL_COOP_PRESET)
 from cmtcoop_tpu_torch.convert import from_jax_variables
 from cmtcoop_tpu_torch.data.synthetic import small_coop_batch
+from cmtcoop_tpu_torch.models.cmt_head import AgentInputs
 from tests.test_torch_kernels import slice_model
 
 # the JAX package's own preset for the small detector
@@ -90,10 +91,11 @@ def test_coop_head_matches_jax(models, rng):
     bevs = [rng.normal(size=(1, 16, 16, 32)).astype(np.float32)
             for _ in range(2)]
     (ref, _) = _apply(jm, variables, lambda m, a, b: m.pts_bbox_head(
-        [AgentInputs(bev_feat=a), AgentInputs(bev_feat=b)]),
+        [JAgentInputs(bev_feat=a), JAgentInputs(bev_feat=b)]),
         *map(jnp.asarray, bevs))
     with torch.inference_mode():
-        ours, _ = port.pts_bbox_head([torch.from_numpy(b) for b in bevs])
+        ours, _ = port.pts_bbox_head(
+            [AgentInputs(bev_feat=torch.from_numpy(b)) for b in bevs])
     for o, r in zip(ours, ref):
         for k in r:
             np.testing.assert_allclose(o[k].numpy(), np.asarray(r[k]),

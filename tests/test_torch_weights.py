@@ -1,8 +1,8 @@
 """Weights carried across packages, and guards on the port's boundaries.
 
 - `from_jax_variables` is the exact inverse of the JAX package's
-  `convert_state_dict` on the LiDAR detectors (zero unused keys), and its
-  state_dict loads strictly into the port's detectors;
+  `convert_state_dict` on the LiDAR and fusion detectors (zero unused
+  keys), and its state_dict loads strictly into the port's detectors;
 - the port's presets equal the JAX package's, field by field;
 - no `cmtcoop_tpu_torch` module imports jax;
 - the port's synthetic batch equals the JAX benchmark batch for one seed.
@@ -44,6 +44,12 @@ CONFIGS = {
         dict(encoder_channels=((8, 8, 8), (8, 8, 16), (16, 16, 16),
                                (16, 16)),
              second_layers=(1, 1), num_decoder_layers=2)),
+    "coop_fusion": (
+        presets.SMALL_FUSION_PRESET, presets.SMALL_FUSION_EXTRACTOR,
+        presets.SMALL_FUSION_HEAD,
+        dict(encoder_channels=((8, 16), (16,)), second_layers=(1, 1),
+             num_decoder_layers=2, block_per_stage=(1, 1, 1, 1),
+             layer_per_block=3)),
 }
 
 
@@ -54,10 +60,20 @@ def _random_variables(model, batch, rng):
         lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
 
 
-def _points(rng, prefixes):
-    return {p + k: jnp.asarray(v) for p in prefixes for k, v in (
-        ("points", rng.uniform(-7, 7, (1, 256, 5)).astype(np.float32)),
-        ("points_mask", np.ones((1, 256), bool)))}
+def _inputs(rng, prefixes, preset):
+    """Points, and with the camera branch one view of images and cameras,
+    per agent prefix."""
+    out = {}
+    for p in prefixes:
+        out[p + "points"] = rng.uniform(-7, 7, (1, 256, 5)).astype(np.float32)
+        out[p + "points_mask"] = np.ones((1, 256), bool)
+        if preset.use_camera:
+            out[p + "imgs"] = rng.normal(
+                size=(1, 1, *preset.img_size, 3)).astype(np.float32)
+            out[p + "lidar2img"] = np.tile(np.eye(4, dtype=np.float32),
+                                           (1, 1, 1, 1))
+            out[p + "img2lidar"] = out[p + "lidar2img"]
+    return {k: jnp.asarray(v) for k, v in out.items()}
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -68,7 +84,7 @@ def test_weights_round_trip_exactly(rng, name):
                 extractor_kwargs=ek, head_kwargs=hk)
     prefixes = (("vehicle_", "infrastructure_") if preset.domain == "coop"
                 else ("",))
-    variables = _random_variables(jm, _points(rng, prefixes), rng)
+    variables = _random_variables(jm, _inputs(rng, prefixes, preset), rng)
     sd = from_jax_variables(variables)
     params, stats, unused = convert_state_dict(
         {k: v.numpy() for k, v in sd.items()}, dict(spec, tasks=preset.tasks))
