@@ -10,9 +10,14 @@ Phases, each raising on failure (the script then exits non-zero):
   2. the kernel build (nvcc, sm_90a) and its seconds;
   3. each hand-written kernel against its plain PyTorch version on the card,
      at the main paths' shapes (neighbour maps and occupancy from the
-     benchmark cloud; the VoVNet stage shapes of the camera branch), in
-     bfloat16 and float32, with error, tolerance and time;
-  4. the main paths, each through `build_detector` at full width in
+     benchmark cloud; the VoVNet stage shapes of the camera branch; the
+     train step's cross-attention, 1540 queries x 44400 keys x 8 heads x 32
+     with a quarter of the keys at NEG_INF, dropout 0.1 and 0), in bfloat16
+     and float32, with error, tolerance and time, beside the least time the
+     card could take for the same work (bytes over 3.35 TB/s or bf16
+     operations over 989 TFLOP/s, H100 SXM) and one PyTorch library call
+     that computes the same function, where there is one;
+  4. the eval main paths, each through `build_detector` at full width in
      bfloat16 with seeded random weights, on the benchmark batch (two
      65536-point ray-cast clouds, seed 0): `cmt_lidar_coop_tumtraf`, then
      the flagship `cmt_fusion_coop_tumtraf` (plus 1 vehicle and 3
@@ -22,20 +27,31 @@ Phases, each raising on failure (the script then exits non-zero):
      outputs, the launch count of every kernel of the path above zero and
      of every other kernel zero; on the fusion path memories of 36400
      (vehicle) and 44400 (infrastructure) tokens;
-  5. slice parity: the small LiDAR and fusion detectors of the CPU parity
+  5. the train path: the full-width `cmt_fusion_coop_tumtraf` train step
+     (main_path.py `build_train_path`: DN with 128 GT slots, dropout 0.1,
+     grid mask, Hungarian loss, backward, clipped AdamW, bfloat16), a
+     warm-up plus 3 timed steps: finite losses and gradient norms, a
+     gradient for every parameter, VoVNet's running statistics unchanged
+     and SECOND's and the pillar encoder's moved, every parameter moved,
+     zero cap drops, peak memory, kernels 7 and 8 launched and kernels 1 to
+     6 not;
+  6. slice parity: the small LiDAR and fusion detectors of the CPU parity
      tests (cmtcoop_tpu_torch/configs/presets.py `SMALL_COOP_*`,
      `SMALL_FUSION_*`), the GPU forward (kernels, float32) against the CPU
-     forward (plain versions) on the same weights and inputs.
+     forward (plain versions) on the same weights and inputs; and one train
+     step of the small fusion detector (dropout 0), GPU (kernels 7 and 8)
+     against CPU, its loss dict and every gradient.
 
 Before the last line come a JSON object with one entry per kernel (its
-launches on each main path, its worst bfloat16 error and its first case's
-kernel and plain times) and the card's name and power limit from
-`nvidia-smi`; the last line is `{"ok": true, "device": {...}}`. Without a
-CUDA device, or run outside a checkout, it exits non-zero and prints no
-result.
+launches on each main path, its worst bfloat16 error, its first case's
+kernel, plain and library times and its bound) and the card's name and
+power limit from `nvidia-smi`; the last line is `{"ok": true, "device":
+{...}}`. Without a CUDA device, or run outside a checkout, it exits
+non-zero and prints no result.
 """
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,6 +67,13 @@ N_FRAMES = 3
 # plain versions round one more intermediate, so a few output ulps
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SLICE_TOL = 1e-3  # float32 GPU vs CPU over the whole small detector
+# the small train step, float32, GPU vs CPU: each loss term to TRAIN_TOL
+# relative, each gradient to TRAIN_TOL of its max |CPU grad| + 1e-6 (the
+# gather convs' scatter-add backward sums in another order on the card)
+TRAIN_TOL = 2e-3
+# H100 SXM published peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+ATTN_Q, ATTN_K = 1540, 44400  # the train step's cross-attention (infra)
 
 SOURCES = {
     "pillar_conv_kb9": ("cmtcoop_tpu_torch/csrc/pillar_conv.cu",
@@ -65,6 +88,12 @@ SOURCES = {
                               "cmtcoop_tpu/ops/conv_cf.py:184"),
     "osa_aggregate": ("cmtcoop_tpu_torch/csrc/osa_agg.cu",
                       "cmtcoop_tpu/ops/conv_cf.py:273"),
+    "flash_train_fwd": ("cmtcoop_tpu_torch/csrc/flash_train.cu",
+                        "cmtcoop_tpu/ops/attention.py:73"),
+    "flash_train_bwd_dq": ("cmtcoop_tpu_torch/csrc/flash_train.cu",
+                           "cmtcoop_tpu/ops/attention.py:309"),
+    "flash_train_bwd_dkv": ("cmtcoop_tpu_torch/csrc/flash_train.cu",
+                            "cmtcoop_tpu/ops/attention.py:354"),
 }
 
 
@@ -85,13 +114,29 @@ def cuda_ms(fn, warmup=2, iters=5):
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, flops):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the bf16 operations over the tensor-core rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def compare(name, shape_note, kernel, plain, make_inputs, results,
-            exact_side=True):
+            exact_side=True, library=None, work=None):
     """Kernel vs plain version on the same inputs, in bfloat16 and float32;
     `make_inputs(dtype)` gives (args, kwargs). The first output is held to
     TOL of its max|plain|; side outputs are held equal (occupancy) or, with
-    `exact_side=False`, each to TOL of its own max|plain| (the aggregate's
-    gap). Records the bf16 numbers of the first output."""
+    `exact_side=False`, each to TOL of its own max|plain|. Records the bf16
+    numbers of the first output, and on the first bf16 case of a kernel
+    the time of the call `library(*args, **kw)` returns (one PyTorch call
+    computing the same function; None when there is none) and the bound
+    from `work(*args, **kw)` -> (bytes, flops)."""
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         args, kw = make_inputs(dtype)
@@ -116,6 +161,7 @@ def compare(name, shape_note, kernel, plain, make_inputs, results,
                                      f"{i} shape {tuple(g.shape)} vs "
                                      f"{tuple(r.shape)} or non-finite")
             errs.append((float((g - r).abs().max()), float(r.abs().max())))
+        del got, ref
         ok = all(e <= TOL[dname] * p for e, p in errs)
         err, peak = errs[0]
         k_ms = cuda_ms(lambda: kernel(*args, **kw))
@@ -129,11 +175,20 @@ def compare(name, shape_note, kernel, plain, make_inputs, results,
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {shape_note} {dname} disagrees")
-        if dtype == torch.bfloat16:
-            rec = results.setdefault(name, dict(max_abs_err=0.0))
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec.setdefault("ms", k_ms)
-            rec.setdefault("plain_ms", p_ms)
+        if dtype != torch.bfloat16:
+            continue
+        rec = results.setdefault(name, dict(max_abs_err=0.0))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if "ms" in rec:
+            continue
+        rec.update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound(*work(*args, **kw))
+        if library is not None:
+            rec["library_ms"] = cuda_ms(library(*args, **kw))
+        log(f"kernel {name} [{shape_note}] bfloat16: bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+            + ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.3f} ms"))
 
 
 def levels_of(batch, agent, ext):
@@ -159,6 +214,38 @@ def levels_of(batch, agent, ext):
                            nbr=pu.pillar_neighbor_map(grid)))
         counts.append(int(n))
     return stats, counts, levels
+
+
+def pillar_work(feats, nbr, wts, *, kz, z_stride, z_pad, occ_out=None,
+                occ_in=None, fold_occ=False, residual=None, scale=None,
+                bias=None, relu=True):
+    """(bytes, flops) of a pillar conv on this data: the products of every
+    occupied output voxel with the taps whose input voxel is occupied."""
+    from cmtcoop_tpu_torch.ops import pillars as pu
+    if fold_occ:
+        occ_out = pu.occ_downsample(occ_in, nbr, kz, z_stride, z_pad)
+    occ_src = occ_in if occ_in is not None else feats.ne(0).any(-1)
+    p_in, z_in = occ_src.shape
+    padded = torch.cat([occ_src, occ_src.new_zeros(1, z_in)])
+    padded = torch.nn.functional.pad(padded, (z_pad, z_pad))
+    src = padded[nbr.long()]
+    z_out = occ_out.shape[1]
+    span = (z_out - 1) * z_stride + 1
+    taps = sum(int((src[:, :, dz:dz + span:z_stride]
+                    & occ_out[:, None, :]).sum()) for dz in range(kz))
+    cin, cout = wts.shape[1:]
+    out_bytes = nbr.shape[0] * z_out * cout * feats.element_size()
+    return (nbytes(feats, nbr, residual, occ_in, occ_out, scale, bias)
+            + wts.numel() * feats.element_size() + out_bytes,
+            2.0 * taps * cin * cout)
+
+
+def sdpa(q, k, v, k_bias, dropout_p=0.0):
+    """The library call: scaled_dot_product_attention on (B, H, N, Dh) with
+    the per-key mask as a boolean mask."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=(k_bias == 0)[:, None, None, :],
+        dropout_p=dropout_p)
 
 
 def kernel_phases(lv, results, dev):
@@ -193,7 +280,8 @@ def kernel_phases(lv, results, dev):
             return (feats.to(dtype), nbr, wts), a
 
         compare(name, note, fused_pillar_conv,
-                fused_pillar_conv_reference, inputs, results)
+                fused_pillar_conv_reference, inputs, results,
+                work=pillar_work)
 
     l0, l1, l3 = lv[0], lv[1], lv[3]
     pillar_case("pillar_conv_kb9", "stage-0 subm P38400 Z41 16->16", l0, 16,
@@ -215,10 +303,31 @@ def kernel_phases(lv, results, dev):
         1, 32400, 256)
     masked = torch.rand(1, 32400, generator=gen, device=dev) < 0.25
     kbias = torch.where(masked, NEG_INF, 0.0)
+
+    def heads(x, h):
+        return x.view(x.shape[0], -1, h, x.shape[2] // h).transpose(1, 2)
+
     compare("flash_attention_packed", "q900 k32400 8x32, 1/4 keys masked",
             flash_attention_packed, flash_attention_packed_reference,
             lambda dt: ((q.to(dt), k.to(dt), v.to(dt), kbias, 8), {}),
-            results)
+            results,
+            library=lambda q_, k_, v_, kb, h: lambda: sdpa(
+                heads(q_, h), heads(k_, h), heads(v_, h), kb),
+            work=lambda q_, k_, v_, kb, h: (
+                nbytes(q_, k_, v_, kb) + nbytes(q_),
+                4.0 * q_.shape[1] * k_.shape[1] * q_.shape[2]))
+
+    def conv_work(x, wt, s, b, residual=None):
+        n, h, w, cin = x.shape
+        cout = wt.shape[0]
+        return (nbytes(x, s, b, residual) + wt.numel() * x.element_size()
+                + n * h * w * cout * x.element_size(),
+                2.0 * n * h * w * cin * cout * 9)
+
+    def conv_library(x, wt, s, b, residual=None):
+        w = wt.to(x.dtype)
+        return lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w,
+                                                  padding=1)
 
     def conv_case(name, note, v, h, w, cin, cout, with_resid):
         x = randn(v, h, w, cin)
@@ -231,7 +340,7 @@ def kernel_phases(lv, results, dev):
             return (x.to(dt), wt, s, b), kw
 
         compare(name, note, conv3x3_bn_relu, conv3x3_bn_relu_reference,
-                inputs, results)
+                inputs, results, library=conv_library, work=conv_work)
 
     conv_case("conv3x3_bn_relu", "head 180x180 512->256", 1, 180, 180, 512,
               256, False)
@@ -240,6 +349,17 @@ def kernel_phases(lv, results, dev):
     conv_case("conv3x3_bn_relu_resid", "V3 80x200 160->160 + residual", 3,
               80, 200, 160, 160, True)
 
+    def agg_work(parts, wt, s, b):
+        v, h, w = parts[0].shape[:3]
+        cout = wt.shape[1]
+        return (nbytes(*parts, s, b) + wt.numel() * parts[0].element_size()
+                + v * h * w * cout * parts[0].element_size() + v * cout * 4,
+                2.0 * v * h * w * wt.shape[0] * cout)
+
+    def agg_library(parts, wt, s, b):
+        w = wt.to(parts[0].dtype)
+        return lambda: torch.cat(parts, dim=-1).reshape(-1, w.shape[0]) @ w
+
     def agg_case(note, v, h, w, chans, cout):
         parts = [randn(v, h, w, c) for c in chans]
         wt = randn(sum(chans), cout, scale=sum(chans) ** -0.5)
@@ -247,12 +367,92 @@ def kernel_phases(lv, results, dev):
         compare("osa_aggregate", note, osa_aggregate,
                 osa_aggregate_reference,
                 lambda dt: (([p.to(dt) for p in parts], wt, s, b), {}),
-                results, exact_side=False)
+                results, exact_side=False, library=agg_library,
+                work=agg_work)
 
     agg_case("stage 2 V3 160x400 128+5x128->256 (agg; output 1 = gap)", 3,
              160, 400, (128,) + (128,) * 5, 256)
     agg_case("stage 4 identity block V3 40x100 768+5x192->768 (agg; "
              "output 1 = gap)", 3, 40, 100, (768,) + (192,) * 5, 768)
+
+
+def train_kernel_phases(results, dev):
+    """Kernels 7 and 8 against their plain versions at the train step's
+    cross-attention shape, dropout 0.1 (the path's) then 0; the backward
+    takes the plain forward's (out, m, l). Outside inference mode: the
+    library call for kernel 8 is the autograd backward of
+    scaled_dot_product_attention."""
+    from cmtcoop_tpu_torch.ops import attention as ta
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b, h, dh, seed = 1, 8, 32, SEED + 7
+    q, k, v, dout = (torch.randn(b, n, h * dh, generator=gen, device=dev) * s
+                     for n, s in ((ATTN_Q, 4.0), (ATTN_K, 1.0), (ATTN_K, 1.0),
+                                  (ATTN_Q, 1.0)))
+    masked = torch.rand(b, ATTN_K, generator=gen, device=dev) < 0.25
+    kb = torch.where(masked, ta.NEG_INF, 0.0)
+
+    def views(dt, *xs):
+        return [x.to(dt).view(b, -1, h, dh).transpose(1, 2) for x in xs]
+
+    def fwd_work(q_, k_, v_, kb_, *rest, **kw):
+        return (nbytes(q_, k_, v_, kb_) + nbytes(q_) + 8 * b * h * ATTN_Q,
+                4.0 * b * h * ATTN_Q * ATTN_K * dh)
+
+    def bwd_work(passes, out_bytes):
+        def work(q_, k_, v_, kb_, out, m, l, do, *rest):
+            # m and l in, delta (the size of m) in, the outputs written
+            return (nbytes(q_, k_, v_, kb_, m, l, do) + nbytes(m)
+                    + out_bytes(q_, k_),
+                    passes * 2.0 * b * h * ATTN_Q * ATTN_K * dh)
+        return work
+
+    def sdpa_backward(q_, k_, v_, kb_, out, m, l, do, rate, seed_):
+        """The backward of one scaled_dot_product_attention call with the
+        same mask and dropout rate (dq, dk and dv together)."""
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q_, k_, v_)]
+            o = sdpa(*leaves, kb_, rate)
+        return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    for rate in (0.1, 0.0):
+        note = (f"q{ATTN_Q} k{ATTN_K} 8x32, 1/4 keys masked, dropout "
+                f"{rate:g}")
+        compare("flash_train_fwd", note + " (outputs 1, 2 = m, l)",
+                ta.flash_attention_kvmask,
+                ta.flash_attention_kvmask_reference,
+                lambda dt, r=rate: ((*views(dt, q, k, v), kb, True, r, seed),
+                                    {}),
+                results, exact_side=False, work=fwd_work,
+                library=lambda q_, k_, v_, kb_, st, r, sd: lambda: sdpa(
+                    q_, k_, v_, kb_, r))
+
+        prepared = {}
+
+        def bwd_inputs(dt, r=rate):
+            """The backward's inputs; kernel 8's argument block (and delta)
+            is built from them once, and each launch is timed on it."""
+            qv, kv, vv = views(dt, q, k, v)
+            out, m, l = ta.flash_attention_kvmask_reference(qv, kv, vv, kb,
+                                                            True, r, seed)
+            args = (qv, kv, vv, kb, out, m, l, views(dt, dout)[0], r, seed)
+            prepared["block"] = ta._bwd_args(*args)
+            return args, {}
+
+        compare("flash_train_bwd_dq", note,
+                lambda q_, *a: ta._bwd_dq(prepared["block"][0], q_),
+                lambda *a: ta.flash_attention_bwd_reference(*a)[0],
+                bwd_inputs, results, exact_side=False,
+                work=bwd_work(3, lambda q_, k_: nbytes(q_)),
+                library=sdpa_backward)
+        compare("flash_train_bwd_dkv", note + " (outputs dk, dv, dk_bias)",
+                lambda q_, k_, v_, kb_, *a: ta._bwd_dkv(prepared["block"][0],
+                                                        k_, kb_),
+                lambda *a: ta.flash_attention_bwd_reference(*a)[1:],
+                bwd_inputs, results, exact_side=False,
+                work=bwd_work(4, lambda q_, k_: 2 * nbytes(k_)
+                              + 4 * b * h * ATTN_K),
+                library=sdpa_backward)
+        torch.cuda.empty_cache()
 
 
 def telemetry(model, batch):
@@ -381,6 +581,136 @@ def slice_parity(name, model, batch, kernels, dev):
         raise AssertionError(f"slice parity failed ({name})")
 
 
+def run_train(dev):
+    """Phase 5: the full-width train step, warm-up plus N_FRAMES timed
+    steps, and the checks of the module docstring. Returns the launch
+    counts of the timed steps."""
+    from cmtcoop_tpu_torch import _build, main_path
+    from cmtcoop_tpu_torch.models import cmt_loss
+    model, batch, opt, step = main_path.build_train_path(dev)
+    with torch.no_grad():
+        telemetry(model, batch)
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    params = [p.detach().clone() for p in opt.params]
+    solve_s = []
+    solve = cmt_loss.solve_lap
+
+    def timed_solve(*a):
+        t0 = time.perf_counter()
+        out = solve(*a)
+        solve_s[-1] += time.perf_counter() - t0
+        return out
+
+    cmt_loss.solve_lap = timed_solve
+    try:
+        solve_s.append(0.0)
+        step(batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        times, metrics = [], []
+        for _ in range(N_FRAMES):
+            solve_s.append(0.0)
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = dict(_build.launch_counts)
+    finally:
+        cmt_loss.solve_lap = solve
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(metrics):
+        if not all(math.isfinite(x) for x in m.values()):
+            raise AssertionError(f"train step {i}: non-finite metrics {m}")
+    no_grad = [n for n, p in zip(opt.names, opt.params)
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if no_grad:
+        raise AssertionError(f"train: no or non-finite gradient for "
+                             f"{no_grad[:5]} ({len(no_grad)} parameters)")
+    still = [n for n, p, p0 in zip(opt.names, opt.params, params)
+             if torch.equal(p.detach(), p0)]
+    if still:
+        raise AssertionError(f"train: parameters did not move: {still[:5]}")
+    for n, b in model.named_buffers():
+        moved = not torch.equal(b, buffers[n])
+        if moved != ("img_backbone" not in n):
+            raise AssertionError(f"train: running statistic {n} "
+                                 f"{'moved' if moved else 'did not move'}")
+    path_kernels = main_path.PATH_KERNELS[main_path.TRAIN_PATH]
+    for name in _build.KERNELS:
+        if (launches[name] > 0) != (name in path_kernels):
+            raise AssertionError(f"train: kernel {name} launched "
+                                 f"{launches[name]} times")
+    solve_ms = [t * 1e3 for t in solve_s[1:]]
+    log(f"train path {main_path.TRAIN_PATH}: {N_FRAMES} steps, ms/step "
+        f"{' '.join(f'{t:.1f}' for t in times)} (mean "
+        f"{sum(times) / len(times):.1f}), Hungarian solve on the host "
+        f"{' '.join(f'{t:.1f}' for t in solve_ms)} ms/step, peak memory "
+        f"{peak_gb:.2f} GiB, {len(opt.params)} parameter tensors all with "
+        f"finite gradients and moved, launches {launches}")
+    for i, m in enumerate(metrics):
+        log(f"train step {i + 1} metrics: " + json.dumps(
+            {k: round(v, 6) for k, v in m.items()}))
+    return launches
+
+
+def train_parity(dev):
+    """Phase 6, train: one step of the small fusion detector (dropout 0;
+    DN noise and grid mask from the same CPU generators), float32, the
+    GPU's (kernels 7 and 8) against the CPU's (plain versions): the loss
+    dict and every gradient."""
+    from cmtcoop_tpu_torch import _build, main_path
+    from cmtcoop_tpu_torch.configs.presets import (SMALL_FUSION_EXTRACTOR,
+                                                   SMALL_FUSION_HEAD,
+                                                   SMALL_FUSION_PRESET,
+                                                   tiny_preset)
+    from cmtcoop_tpu_torch.data.synthetic import small_fusion_train_batch
+    from cmtcoop_tpu_torch.models.build import build_detector, random_init_
+    from cmtcoop_tpu_torch.models.cmt_loss import cmt_loss
+    from cmtcoop_tpu_torch.train.train_step import step_generators
+    preset = tiny_preset(**SMALL_FUSION_PRESET)
+
+    def build():
+        return build_detector(preset, train=True,
+                              extractor_kwargs=SMALL_FUSION_EXTRACTOR,
+                              head_kwargs=dict(SMALL_FUSION_HEAD, max_gt=4,
+                                               dropout=0.0))
+
+    cpu = build()
+    random_init_(cpu, torch.Generator().manual_seed(SEED))
+    gpu = build()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    batch = small_fusion_train_batch()
+    runs = []
+    for model, d in ((cpu, "cpu"), (gpu, dev)):
+        tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        before = dict(_build.launch_counts)
+        outs, dn_info = model(tb, step_generators(SEED, 0))
+        losses = cmt_loss(outs, dn_info, tb["gt_boxes"], tb["gt_labels"],
+                          tb["gt_mask"], preset.tasks)
+        losses["loss"].backward()
+        used = {k for k in before if _build.launch_counts[k] > before[k]}
+        runs.append(({k: float(v.detach()) for k, v in losses.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     used))
+    (ref_l, ref_g, _), (got_l, got_g, used) = runs
+    loss_err = max(abs(got_l[k] - v) / max(abs(v), 1e-6)
+                   for k, v in ref_l.items())
+    grad_err = max(float((got_g[n] - g).abs().max())
+                   / (float(g.abs().max()) + 1e-6 / TRAIN_TOL)
+                   for n, g in ref_g.items())
+    log(f"train parity (small fusion coop detector, float32, GPU kernels vs "
+        f"CPU plain): loss terms max rel err {loss_err:.3e}, gradients max "
+        f"err {grad_err:.3e} of max|grad| + 1e-6 (tol {TRAIN_TOL:g}, "
+        f"{len(ref_g)} tensors), kernels launched {sorted(used)}")
+    if (loss_err > TRAIN_TOL or grad_err > TRAIN_TOL or set(ref_l) != set(
+            got_l) or used != set(main_path.PATH_KERNELS[
+                main_path.TRAIN_PATH])):
+        raise AssertionError("train parity failed")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -427,6 +757,7 @@ def main():
     results = {}
     with torch.inference_mode():
         kernel_phases(levels, results, dev)
+    train_kernel_phases(results, dev)
 
     # 4. the main paths, one model on the card at a time
     launches = {main_path.PRESET: run_path(main_path.PRESET, model, batch)}
@@ -440,7 +771,11 @@ def main():
     del model, batch
     torch.cuda.empty_cache()
 
-    # 5. slice parity (small configs): GPU kernels vs CPU plain, float32
+    # 5. the train path
+    launches[main_path.TRAIN_PATH] = run_train(dev)
+    torch.cuda.empty_cache()
+
+    # 6. slice parity (small configs): GPU kernels vs CPU plain, float32
     slice_parity("small LiDAR coop detector",
                  build_detector(tiny_preset(**SMALL_COOP_PRESET),
                                 extractor_kwargs=SMALL_COOP_EXTRACTOR,
@@ -453,6 +788,7 @@ def main():
                                 head_kwargs=SMALL_FUSION_HEAD),
                  small_fusion_batch(),
                  main_path.PATH_KERNELS[main_path.FUSION_PRESET], dev)
+    train_parity(dev)
 
     kernels = []
     for name in _build.KERNELS:
@@ -464,7 +800,9 @@ def main():
                             launches=sum(per_path.values()),
                             launches_per_path=per_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,11 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel name -> launches since the last reset (kernels 1 to 6 of the port)
+# kernel name -> launches since the last reset (kernels 1 to 8 of the port;
+# kernel 8 is two launches, counted apart)
 KERNELS = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
-           "conv3x3_bn_relu", "conv3x3_bn_relu_resid", "osa_aggregate")
+           "conv3x3_bn_relu", "conv3x3_bn_relu_resid", "osa_aggregate",
+           "flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,6 +42,10 @@ _SIGNATURES = {
     "cmt_conv3x3_bn_relu": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     "cmt_osa_aggregate": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P] * 5
     + [_I] * 3 + [_P],
+    # kernels 7 and 8 take a pointer to one argument block and the stream
+    "cmt_flash_train_fwd": [_P, _P],
+    "cmt_flash_train_bwd_dq": [_P, _P],
+    "cmt_flash_train_bwd_dkv": [_P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

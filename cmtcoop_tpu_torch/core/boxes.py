@@ -1,4 +1,5 @@
-"""3D box math (counterpart of cmtcoop_tpu/core/boxes.py), eval subset.
+"""3D box math (counterpart of cmtcoop_tpu/core/boxes.py), the eval and
+train subset.
 
 Box layout: box9 = (cx, cy, cz, w, l, h, yaw, vx, vy), cz at the box center;
 the 10-dim regression code is (cx, cy, cz, log w, log l, log h, sin yaw,
@@ -7,6 +8,17 @@ cos yaw, vx, vy).
 from __future__ import annotations
 
 import torch
+
+
+def normalize_bbox(boxes: torch.Tensor) -> torch.Tensor:
+    """box9/box7 -> 10/8-dim regression code: centers pass through, sizes
+    go to log space, yaw to (sin, cos), velocity passes through."""
+    yaw = boxes[..., 6:7]
+    parts = [boxes[..., 0:3], torch.log(boxes[..., 3:6]), torch.sin(yaw),
+             torch.cos(yaw)]
+    if boxes.shape[-1] > 7:
+        parts.append(boxes[..., 7:9])
+    return torch.cat(parts, dim=-1)
 
 
 def denormalize_bbox(code: torch.Tensor) -> torch.Tensor:

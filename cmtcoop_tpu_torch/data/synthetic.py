@@ -139,3 +139,21 @@ def small_fusion_batch() -> Dict[str, np.ndarray]:
         b[a + "lidar2img"] = l2i
         b[a + "img2lidar"] = np.linalg.inv(l2i).astype(np.float32)
     return b
+
+
+def small_fusion_train_batch() -> Dict[str, np.ndarray]:
+    """`small_fusion_batch()` plus the ground truth of the small train-step
+    checks: 4 GT slots (slot 2 padding) inside its 32 m range, label 0 (the
+    tiny preset's one class), drawn from seed 5."""
+    b = small_fusion_batch()
+    rng = np.random.default_rng(5)
+    gt = np.zeros((1, 4, 9), np.float32)
+    gt[..., :2] = rng.uniform(-12, 12, (1, 4, 2))
+    gt[..., 2] = rng.uniform(-3, 1, (1, 4))
+    gt[..., 3:6] = rng.uniform(0.5, 4, (1, 4, 3))
+    gt[..., 6] = rng.uniform(-3, 3, (1, 4))
+    gt[..., 7:] = rng.normal(size=(1, 4, 2))
+    b["gt_boxes"] = gt
+    b["gt_labels"] = np.zeros((1, 4), np.int32)
+    b["gt_mask"] = np.array([[True, True, False, True]])
+    return b

@@ -3,12 +3,15 @@
 LiDAR plus 1 vehicle and 3 infrastructure cameras at 640x1600) in bfloat16,
 batch 1, with seeded random weights, on the JAX package's benchmark batch
 (two 65536-point ray-cast clouds, images kept for the camera branch), and
-one frame of either (forward + top-300 decode). chip_smoke.py and
-profile_path.py drive them; the overrides are those of the JAX `bench.py`.
+one frame of either (forward + top-300 decode); and the train step of
+`cmt_fusion_coop_tumtraf` (DN with 128 GT slots, dropout 0.1, grid mask,
+clipped AdamW) on the same batch with its ground truth. chip_smoke.py and
+profile_path.py drive them; the overrides are those of the JAX `bench.py`
+and `tools/probe_train_step.py`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -17,14 +20,20 @@ from cmtcoop_tpu_torch.configs.presets import get_preset
 from cmtcoop_tpu_torch.core.coder import decode_boxes
 from cmtcoop_tpu_torch.data.synthetic import coop_batch
 from cmtcoop_tpu_torch.models.build import build_detector, random_init_
+from cmtcoop_tpu_torch.train.optim import AdamW
+from cmtcoop_tpu_torch.train.train_step import make_train_step
 
 PRESET = "cmt_lidar_coop_tumtraf"
 FUSION_PRESET = "cmt_fusion_coop_tumtraf"
 PATHS = (PRESET, FUSION_PRESET)
+TRAIN_PATH = FUSION_PRESET + " train"
 # the kernels each path launches (kernel 5, the conv with a residual, is on
-# no path: the OSA identity is added after the eSE scale)
+# no path: the OSA identity is added after the eSE scale; the train path
+# runs kernels 7 and 8 only, as the JAX train path runs no eval kernel)
 PATH_KERNELS = {PRESET: _build.KERNELS[:4],
-                FUSION_PRESET: _build.KERNELS[:4] + ("osa_aggregate",)}
+                FUSION_PRESET: _build.KERNELS[:4] + ("osa_aggregate",),
+                TRAIN_PATH: ("flash_train_fwd", "flash_train_bwd_dq",
+                             "flash_train_bwd_dkv")}
 SEED = 0
 MAX_VOXELS = 65536
 # per-level pillar caps, calibrated on the benchmark clouds
@@ -34,6 +43,8 @@ IMG_HW = (640, 1600)
 VIEWS = (1, 3)  # vehicle, infrastructure cameras
 CAMERA_KEYS = ("imgs", "lidar2img", "img2lidar")
 CODES = ("center", "height", "dim", "rot", "vel")
+TRAIN_MAX_GT = 128  # 5 DN groups: 640 DN queries ahead of the 900
+TRAIN_TOTAL_STEPS = 100  # the schedules' length
 
 
 def build_main_path(
@@ -66,3 +77,24 @@ def frame(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
     if dec.scores.is_cuda:
         torch.cuda.synchronize()
     return task_outs, dec
+
+
+def build_train_path(device, span: Optional[Callable] = None):
+    """(model, batch, optimizer, step) of the full-width train step on
+    `device`: `cmt_fusion_coop_tumtraf` in train mode, bfloat16 compute on
+    float32 parameters from `SEED`, `TRAIN_MAX_GT` GT slots, the benchmark
+    batch with its ground truth, AdamW over `TRAIN_TOTAL_STEPS`; `step(batch)`
+    runs one step (train/train_step.py, `span` as there)."""
+    p = get_preset(FUSION_PRESET)
+    model = build_detector(p, train=True, dtype=torch.bfloat16,
+                           extractor_kwargs=dict(max_voxels=MAX_VOXELS,
+                                                 pillar_caps=PILLAR_CAPS),
+                           head_kwargs=dict(max_gt=TRAIN_MAX_GT))
+    random_init_(model, torch.Generator().manual_seed(SEED))
+    model.to(device)
+    np_batch = coop_batch(1, N_POINTS, *VIEWS, IMG_HW, max_gt=TRAIN_MAX_GT,
+                          seed=SEED)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
+    optimizer = AdamW(model.named_parameters(), TRAIN_TOTAL_STEPS)
+    step = make_train_step(model, optimizer, p.tasks, SEED, span)
+    return model, batch, optimizer, step

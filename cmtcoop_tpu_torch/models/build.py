@@ -17,12 +17,10 @@ from cmtcoop_tpu_torch.models.pillar_encoder import SparseConvWeight
 def build_detector(preset: Preset, train: bool = False,
                    dtype: torch.dtype = torch.float32, device=None,
                    **overrides) -> nn.Module:
-    """The eval detector of `preset`, computing in `dtype` (parameters stay
-    float32), in eval mode on `device`. `extractor_kwargs` / `head_kwargs`
-    update the preset's; other overrides (e.g. `agents`) go to the
-    detector."""
-    if train:
-        raise NotImplementedError("the training path is not ported yet")
+    """The detector of `preset`, computing in `dtype` (parameters stay
+    float32), in train mode (`train`, with the preset's training caps) or
+    eval mode on `device`. `extractor_kwargs` / `head_kwargs` update the
+    preset's; other overrides (e.g. `agents`) go to the detector."""
     ek = preset.extractor_kwargs(train)
     ek.update(overrides.pop("extractor_kwargs", {}))
     hk = preset.head_kwargs()
@@ -32,7 +30,7 @@ def build_detector(preset: Preset, train: bool = False,
                   **overrides)
     cls = CmtCoopDetector if preset.domain == "coop" else CmtDetector
     model = cls(**common)
-    return model.to(device).eval()
+    return model.to(device).train(train)
 
 
 @torch.no_grad()

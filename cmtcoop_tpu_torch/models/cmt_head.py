@@ -1,4 +1,4 @@
-"""CMT detection head, eval (counterpart of `CmtHead` in
+"""CMT detection head (counterpart of `CmtHead` in
 cmtcoop_tpu/models/cmt_head.py).
 
 Per agent (`AgentInputs`): the token memory is the BEV tokens (`shared_conv`,
@@ -9,7 +9,11 @@ position encoding is `bev_embedding(pos2embed(ref))`, plus the queries'
 back-projected rays summed over the views they land in (`_rv_query_embed`)
 when `with_rv`. One 6-layer decoder pass per agent; with several agents the
 per-layer decoder outputs are fused by an element-wise max after
-`nan_to_num` (the coop head). Then the grouped task heads. State keys follow
+`nan_to_num` (the coop head). Then the grouped task heads. In train mode
+with ground truth, DN-DETR denoising (static caps: `max_gt` GT slots times
+`dn_groups` groups of noised queries ahead of the `num_query` matching
+queries, blocked from each other by `dn_attn_bias`) and the `dn_` outputs
+split off for the loss. State keys follow
 the reference (`shared_conv.conv/bn`, `reference_points.weight`,
 `bev_embedding.{0,2}`, `rv_embedding.{0,2}`, `transformer.decoder.*`,
 `task_heads.{t}.{name}.{0,1,3}`).
@@ -26,6 +30,7 @@ from cmtcoop_tpu_torch.core.pos_embed import (bev_pos2embed_grid, depth_bins,
                                               frustum_coords, pos2embed)
 from cmtcoop_tpu_torch.models.layers import MLP, ConvBNReLU
 from cmtcoop_tpu_torch.models.petr_decoder import PETRTransformerDecoder
+from cmtcoop_tpu_torch.ops.attention import NEG_INF
 
 COMMON_HEADS: Tuple[Tuple[str, int], ...] = (
     ("center", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
@@ -38,6 +43,30 @@ class AgentInputs(NamedTuple):
     lidar2img: Optional[torch.Tensor] = None  # (B, V, 4, 4)
     img2lidar: Optional[torch.Tensor] = None  # (B, V, 4, 4)
     pad_hw: Optional[Tuple[int, int]] = None
+
+
+class DNInfo(NamedTuple):
+    """Static-shape denoising metadata carried to the loss."""
+    known_labels: torch.Tensor      # (B, groups, G) label after the split
+    known_labels_raw: torch.Tensor  # (B, groups, G) label, no split
+    known_boxes: torch.Tensor       # (B, groups, G, 9) gravity-centred box9
+    valid: torch.Tensor             # (B, groups, G) slot validity
+    pad_size: int
+
+
+def dn_attn_bias(num_query: int, max_gt: int, groups: int,
+                 device=None) -> torch.Tensor:
+    """(tgt, tgt) float32 additive self-attention bias, tgt = max_gt *
+    groups + num_query: the matching queries cannot see the DN slots and the
+    DN groups cannot see each other (NEG_INF where blocked)."""
+    pad = max_gt * groups
+    idx = torch.arange(pad + num_query, device=device)
+    dn_row = idx < pad
+    gid = torch.where(dn_row, idx // max(max_gt, 1), groups)
+    blocked = (dn_row[:, None] & dn_row[None, :]
+               & (gid[:, None] != gid[None, :])) | (~dn_row[:, None]
+                                                    & dn_row[None, :])
+    return torch.where(blocked, NEG_INF, 0.0).to(torch.float32)
 
 
 class GroupedDense(nn.Module):
@@ -96,12 +125,11 @@ class SeparateTaskHead(nn.ModuleDict):
 
 
 class CmtHead(nn.Module):
-    """Eval CmtHead over one or more agents: `with_bev` takes the LiDAR BEV
+    """CmtHead over one or more agents: `with_bev` takes the LiDAR BEV
     tokens, `with_rv` the image tokens (CmtLidarHead / CmtImageHead when
-    only one is set).
-
-    `max_gt` and `dn_groups` are the JAX head's training settings; they are
-    accepted so presets build, and unused here."""
+    only one is set). `max_gt`, `dn_groups`, `noise_scale`, `noise_trans`
+    and `split` set the train-mode denoising, `dropout` and `remat` the
+    decoder's train mode."""
 
     def __init__(self, num_query: int = 900, hidden_dim: int = 256,
                  in_channels: int = 512, depth_num: int = 64,
@@ -116,9 +144,14 @@ class CmtHead(nn.Module):
                  num_decoder_layers: int = 6, num_heads: int = 8,
                  feedforward_channels: int = 1024,
                  max_gt: int = 32, dn_groups: int = 5,
-                 compute_dtype=torch.float32):
+                 noise_scale: float = 1.0, noise_trans: float = 0.0,
+                 split: float = 0.75, dropout: float = 0.1,
+                 remat: bool = True, compute_dtype=torch.float32):
         super().__init__()
-        del max_gt, dn_groups
+        self.num_query = num_query
+        self.max_gt, self.dn_groups = max_gt, dn_groups
+        self.noise_scale, self.noise_trans = noise_scale, noise_trans
+        self.split = split
         self.hidden_dim = hidden_dim
         self.depth_num = depth_num
         self.downsample_scale = downsample_scale
@@ -139,23 +172,70 @@ class CmtHead(nn.Module):
         self.transformer = nn.Module()
         self.transformer.decoder = PETRTransformerDecoder(
             num_decoder_layers, hidden_dim, num_heads, feedforward_channels,
-            compute_dtype)
+            compute_dtype, dropout, remat)
         self.task_heads = nn.ModuleList([
             SeparateTaskHead(len(names), num_decoder_layers, hidden_dim)
             for names in self.tasks])
 
-    def forward(self, agents: Sequence[AgentInputs]):
-        """One `AgentInputs` per agent. Returns (task_outs, None): per task
-        a dict of (L, B, Nq, ·) outputs (center and height in metres), and
-        no denoising info (eval)."""
+    @property
+    def total_classes(self) -> int:
+        return sum(len(t) for t in self.tasks)
+
+    def prepare_for_dn(self, ref_points, gt_boxes, gt_labels, gt_mask,
+                       rand) -> Tuple[torch.Tensor, DNInfo]:
+        """Noised GT queries (reference cmt_head.py:339-415 with static
+        shapes): gt_boxes (B, G, 9) gravity-centred, gt_labels (B, G),
+        gt_mask (B, G), `rand` (B, groups, G, 3) uniform in [-1, 1). Returns
+        the (B, groups * G + num_query, 3) reference points in [0, 1] and
+        the DNInfo."""
+        b, g = gt_labels.shape
+        groups = self.dn_groups
+        centers = gt_boxes[:, None, :, :3]
+        labels_rep = gt_labels[:, None, :].expand(b, groups, g)
+        if self.noise_scale > 0:
+            diff = gt_boxes[:, None, :, 3:6] / 2.0 + self.noise_trans
+            noisy = centers + rand * diff * self.noise_scale
+            n01 = normalize_01(noisy, self.pc_range).clamp(0.0, 1.0)
+            over_split = torch.linalg.vector_norm(rand, dim=-1) > self.split
+            known_labels = torch.where(over_split, self.total_classes,
+                                       labels_rep)
+        else:
+            n01 = normalize_01(centers + 0 * rand, self.pc_range).clamp(0.0,
+                                                                       1.0)
+            known_labels = labels_rep
+        boxes_rep = gt_boxes[:, None].expand(b, groups, g, gt_boxes.shape[-1])
+        valid = gt_mask[:, None, :].expand(b, groups, g)
+        dn_ref = torch.where(valid[..., None], n01, 0.0).reshape(b, -1, 3)
+        padded_ref = torch.cat(
+            [dn_ref, ref_points[None].expand(b, *ref_points.shape)], dim=1)
+        return padded_ref, DNInfo(known_labels, labels_rep, boxes_rep, valid,
+                                  groups * g)
+
+    def forward(self, agents: Sequence[AgentInputs], gt_boxes=None,
+                gt_labels=None, gt_mask=None, rngs=None):
+        """One `AgentInputs` per agent. Returns (task_outs, dn_info): per task
+        a dict of (L, B, Nq, ·) outputs (center and height in metres), plus
+        the `dn_` outputs and the DNInfo in train mode with ground truth.
+        `rngs` (`.dn`, `.dropout`: CPU generators) gives the DN noise and
+        the decoder's dropout seeds in train mode."""
         first = agents[0]
         batch = (first.bev_feat if first.bev_feat is not None
                  else first.img_feats).shape[0]
         ref = self.reference_points.weight
-        padded_ref = ref[None].expand(batch, *ref.shape)
+        dn_info = None
+        if self.training and gt_boxes is not None:
+            b, g = gt_labels.shape
+            rand = torch.rand((b, self.dn_groups, g, 3),
+                              generator=rngs.dn if rngs else None)
+            padded_ref, dn_info = self.prepare_for_dn(
+                ref, gt_boxes.float(), gt_labels, gt_mask.bool(),
+                (rand * 2.0 - 1.0).to(ref.device))
+        else:
+            padded_ref = ref[None].expand(batch, *ref.shape)
         ref01 = torch.sigmoid(inverse_sigmoid(padded_ref))
         bev_query_pos = self.bev_embedding(
             pos2embed(ref01, self.hidden_dim).to(self.compute_dtype))
+        generator = rngs.dropout if rngs else None
         outs_decs = []
         for agent in agents:
             memory, memory_pos = self.build_memory(agent)
@@ -163,12 +243,13 @@ class CmtHead(nn.Module):
             if self.with_rv:
                 query_pos = query_pos + self._rv_query_embed(
                     ref01, agent.lidar2img, agent.img2lidar, agent.pad_hw)
-            outs_decs.append(self.run_decoder(memory, memory_pos, query_pos))
+            outs_decs.append(self.run_decoder(memory, memory_pos, query_pos,
+                                              generator))
         if len(outs_decs) == 1:
             outs_dec = outs_decs[0]
-        else:  # coop max fusion
+        else:  # coop max fusion; amax splits the gradient among ties
             outs_dec = torch.stack(outs_decs, dim=0).amax(dim=0)
-        return self.run_task_heads(outs_dec, padded_ref), None
+        return self.run_task_heads(outs_dec, padded_ref, dn_info), dn_info
 
     def _rv_pe(self, feat_hw, pad_hw, img2lidar):
         """(B, V, Hf, Wf, hidden) position encoding of the image tokens: the
@@ -184,7 +265,8 @@ class CmtHead(nn.Module):
     def project_queries(self, ref01, lidar2img, pad_hw):
         """Queries (B, N, 3) in [0, 1] projected into every view: (uvz,
         in_img), uvz (B, V, N, 4) with the first three components divided
-        by z +- 1e-6 (by the sign of z), in_img (B, V, N) true where
+        by z +- 1e-6 (by the sign of z; z taken as a constant for the
+        gradient), in_img (B, V, N) true where
         0 <= u < pad_w, 0 <= v < pad_h and z > 0."""
         pad_h, pad_w = pad_hw
         lo = ref01.new_tensor(self.pc_range[:3])
@@ -194,7 +276,8 @@ class CmtHead(nn.Module):
         proj = torch.einsum("bnd,bvcd->bvnc", pts_h, lidar2img.float())
         z = proj[..., 2:3]
         z_pos = z > 0.0
-        denom = z + torch.where(z_pos, 1e-6, -1e-6)
+        # no gradient through the divisor, as in the JAX head
+        denom = z.detach() + torch.where(z_pos, 1e-6, -1e-6)
         uvz = torch.cat([proj[..., :3] / denom, proj[..., 3:]], dim=-1)
         u, v = uvz[..., 0], uvz[..., 1]
         in_img = ((u >= 0) & (u < pad_w) & (v >= 0) & (v < pad_h)
@@ -236,13 +319,24 @@ class CmtHead(nn.Module):
             pos.append(rv_pos.reshape(b, v * hf * wf, self.hidden_dim))
         return torch.cat(mem, dim=1), torch.cat(pos, dim=1)
 
-    def run_decoder(self, memory, memory_pos, query_pos):
+    def run_decoder(self, memory, memory_pos, query_pos, generator=None):
+        """The decoder over one agent's memory; with DN queries (train) the
+        self-attention takes `dn_attn_bias`, its slot count following the
+        queries' (the batch's GT slots times `dn_groups`)."""
+        nq = query_pos.shape[1]
+        bias = None
+        if self.training and nq > self.num_query:
+            single_pad = (nq - self.num_query) // self.dn_groups
+            bias = dn_attn_bias(self.num_query, single_pad, self.dn_groups,
+                                query_pos.device)[None, None]
         target = torch.zeros_like(query_pos)
-        outs_dec = self.transformer.decoder(target, memory, query_pos,
-                                            memory_pos)
+        outs_dec = self.transformer.decoder(
+            target, memory, query_pos, memory_pos, self_attn_bias=bias,
+            generator=generator)
         return torch.nan_to_num(outs_dec)
 
-    def run_task_heads(self, outs_dec, padded_ref) -> List[Dict]:
+    def run_task_heads(self, outs_dec, padded_ref,
+                       dn_info: Optional[DNInfo] = None) -> List[Dict]:
         reference = inverse_sigmoid(padded_ref)
         lo = self.pc_range
         task_outs = []
@@ -254,5 +348,10 @@ class CmtHead(nn.Module):
             cy = center[..., 1:2] * (lo[4] - lo[1]) + lo[1]
             outs["center"] = torch.cat([cx, cy], dim=-1)
             outs["height"] = height * (lo[5] - lo[2]) + lo[2]
+            if dn_info is not None and dn_info.pad_size > 0:
+                pad = dn_info.pad_size
+                for k in list(outs):
+                    outs["dn_" + k] = outs[k][:, :, :pad]
+                    outs[k] = outs[k][:, :, pad:]
             task_outs.append(outs)
         return task_outs

@@ -1,9 +1,14 @@
-"""CMT detectors, eval (counterpart of cmtcoop_tpu/models/detector.py).
+"""CMT detectors (counterpart of cmtcoop_tpu/models/detector.py).
 
 Batch dicts as in the JAX package: `points` (B, N, 5) float32 zero-padded,
 `points_mask` (B, N) bool, `imgs` (B, V, H, W, 3) float32, `lidar2img` and
 `img2lidar` (B, V, 4, 4); cooperative batches carry `vehicle_` and
-`infrastructure_` prefixes.
+`infrastructure_` prefixes; for training `gt_boxes` (B, G, 9)
+gravity-centred, `gt_labels` (B, G) int, `gt_mask` (B, G) bool, shared by
+the agents. In train mode (`model.train()`) the images are grid-masked
+before the backbone and the ground truth goes to the head (DN); `rngs`
+(CPU generators `.dn`, `.dropout`, `.gridmask`; see train/train_step.py)
+gives the step's random draws.
 """
 from __future__ import annotations
 
@@ -13,16 +18,16 @@ import torch
 import torch.nn as nn
 
 from cmtcoop_tpu_torch.models.cmt_head import AgentInputs, CmtHead
+from cmtcoop_tpu_torch.models.grid_mask import grid_mask, grid_mask_draws
 from cmtcoop_tpu_torch.models.pillar_encoder import PillarSparseEncoder
 from cmtcoop_tpu_torch.models.second import SECOND, SECONDFPN
 from cmtcoop_tpu_torch.models.vovnet import CPFPN, VoVNet
 from cmtcoop_tpu_torch.ops.pillars import pillarize
 
-# FeatureExtractor settings that select nothing at eval here: grid mask
-# (training only), the JAX package's TPU image-layout switch, and the gather
-# encoder's caps (that encoder is not ported). Presets carry them, so they
-# are accepted and have no effect.
-NOT_PORTED_KEYS = ("use_grid_mask", "img_impl", "sparse_stage_caps")
+# FeatureExtractor settings that select nothing here: the JAX package's TPU
+# image-layout switch and the gather encoder's caps (that encoder is not
+# ported). Presets carry them, so they are accepted and have no effect.
+NOT_PORTED_KEYS = ("img_impl", "sparse_stage_caps")
 
 
 class FeatureExtractor(nn.Module):
@@ -49,7 +54,7 @@ class FeatureExtractor(nn.Module):
                  fpn_channels: Sequence[int] = (256, 256),
                  img_spec: str = "V-99-eSE",
                  img_out_features: Sequence[str] = ("stage4", "stage5"),
-                 neck_out_channels: int = 256,
+                 neck_out_channels: int = 256, use_grid_mask: bool = True,
                  compute_dtype=torch.float32, **not_ported):
         super().__init__()
         unknown = set(not_ported) - set(NOT_PORTED_KEYS)
@@ -59,6 +64,7 @@ class FeatureExtractor(nn.Module):
             raise ValueError("an extractor needs the LiDAR or the camera "
                              "branch")
         self.use_lidar, self.use_camera = use_lidar, use_camera
+        self.use_grid_mask = use_grid_mask
         self.compute_dtype = compute_dtype
         if use_camera:
             if img_spec.startswith("r"):
@@ -109,16 +115,20 @@ class FeatureExtractor(nn.Module):
             for p, m in zip(points, points_mask)])
         return self.pts_neck(self.pts_backbone(bev))
 
-    def extract_img_feat(self, imgs) -> torch.Tensor:
-        """(B, V, H, W, 3) images -> (B, V, H/16, W/16, C) CPFPN level 0."""
+    def extract_img_feat(self, imgs, rngs=None) -> torch.Tensor:
+        """(B, V, H, W, 3) images -> (B, V, H/16, W/16, C) CPFPN level 0;
+        grid-masked first in train mode."""
         b, v, h, w, c = imgs.shape
         x = imgs.reshape(b * v, h, w, c).to(self.compute_dtype).contiguous()
+        if self.training and self.use_grid_mask:
+            x = grid_mask(x, grid_mask_draws(
+                rngs.gridmask if rngs else None, h, w))
         feats = self.img_backbone(x)
         f0 = self.img_neck([feats[k] for k in self.img_out_features])[0]
         return f0.reshape(b, v, *f0.shape[1:])
 
-    def extract(self, batch: Dict[str, torch.Tensor],
-                prefix: str = "") -> AgentInputs:
+    def extract(self, batch: Dict[str, torch.Tensor], prefix: str = "",
+                rngs=None) -> AgentInputs:
         bev_feat = img_feats = pad_hw = None
         if self.use_lidar:
             bev_feat = self.extract_pts_feat(batch[prefix + "points"],
@@ -126,13 +136,19 @@ class FeatureExtractor(nn.Module):
         if self.use_camera:
             imgs = batch[prefix + "imgs"]
             pad_hw = (imgs.shape[2], imgs.shape[3])
-            img_feats = self.extract_img_feat(imgs)
+            img_feats = self.extract_img_feat(imgs, rngs)
         return AgentInputs(bev_feat, img_feats,
                            batch.get(prefix + "lidar2img"),
                            batch.get(prefix + "img2lidar"), pad_hw)
 
-    def forward(self, batch, prefix: str = ""):
-        return self.extract(batch, prefix)
+    def forward(self, batch, prefix: str = "", rngs=None):
+        return self.extract(batch, prefix, rngs)
+
+
+def _gt(batch):
+    return dict(gt_boxes=batch.get("gt_boxes"),
+                gt_labels=batch.get("gt_labels"),
+                gt_mask=batch.get("gt_mask"))
 
 
 def _head(use_lidar: bool, use_camera: bool, ek: Dict, hk: Dict,
@@ -159,8 +175,9 @@ class CmtDetector(FeatureExtractor):
         self.pts_bbox_head = _head(use_lidar, use_camera, ek,
                                    head_kwargs or {}, compute_dtype)
 
-    def forward(self, batch):
-        return self.pts_bbox_head([self.extract(batch)])
+    def forward(self, batch, rngs=None):
+        return self.pts_bbox_head([self.extract(batch, "", rngs)],
+                                  rngs=rngs, **_gt(batch))
 
 
 class CmtCoopDetector(nn.Module):
@@ -184,7 +201,7 @@ class CmtCoopDetector(nn.Module):
         self.pts_bbox_head = _head(use_lidar, use_camera, ek,
                                    head_kwargs or {}, compute_dtype)
 
-    def forward(self, batch):
+    def forward(self, batch, rngs=None):
         return self.pts_bbox_head([
-            getattr(self, f"{a}_model").extract(batch, f"{a}_")
-            for a in self.agents])
+            getattr(self, f"{a}_model").extract(batch, f"{a}_", rngs)
+            for a in self.agents], rngs=rngs, **_gt(batch))

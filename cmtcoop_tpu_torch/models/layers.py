@@ -1,5 +1,4 @@
-"""Shared building blocks, eval only (counterpart of
-cmtcoop_tpu/models/layers.py).
+"""Shared building blocks (counterpart of cmtcoop_tpu/models/layers.py).
 
 Parameters stay float32 and keep the reference's mmdet3d state_dict names;
 each layer computes in the `compute_dtype` it was built with (bfloat16 on
@@ -16,14 +15,19 @@ from cmtcoop_tpu_torch.ops.conv_cf import conv3x3_bn_relu, fold_bn
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over dim 1 (NCHW), folded to an affine. Holds the
-    reference's `weight`, `bias`, `running_mean`, `running_var` (no
-    `num_batches_tracked`: eval only). Also the eval fold of the JAX
-    package's `MaskedBatchNorm` (eps 1e-3), through `fold()`."""
+    """BatchNorm over dim 1 (NCHW) holding the reference's `weight`, `bias`,
+    `running_mean`, `running_var` (no `num_batches_tracked`). Eval: folded
+    to an affine (`fold()`, also what the fused kernels take). Train: the
+    batch's mean and biased variance in float32 normalise, and the running
+    statistics move as flax's do, r = momentum * r + (1 - momentum) * stat,
+    with `momentum` the flax one (0.9 = torch 0.1, 0.99 = torch 0.01). Not
+    `F.batch_norm`: it would store the unbiased variance and take
+    1 - momentum. `masked` is the JAX package's `MaskedBatchNorm` (eps 1e-3,
+    momentum 0.99): statistics over the valid rows only."""
 
-    def __init__(self, c: int, eps: float):
+    def __init__(self, c: int, eps: float, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -34,10 +38,42 @@ class BatchNorm(nn.Module):
         return fold_bn(self.weight, self.bias, self.running_mean,
                        self.running_var, self.eps)
 
+    @torch.no_grad()
+    def _update(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+
     def forward(self, x):
-        s, b = self.fold()
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return (x.float() * s.view(shape) + b.view(shape)).to(x.dtype)
+        if not self.training:
+            s, b = self.fold()
+            return (x.float() * s.view(shape) + b.view(shape)).to(x.dtype)
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = (xf - mean.view(shape)).square().mean(dims)
+        self._update(mean, var)
+        y = (xf - mean.view(shape)) * (
+            self.weight * torch.rsqrt(var + self.eps)).view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+    def masked(self, x, mask):
+        """x (..., C) with mask (...): normalised, times the mask, in x's
+        dtype; in train mode with the statistics of the rows where mask."""
+        if not self.training:
+            s, b = self.fold()
+            y = x.float() * s + b
+        else:
+            m = mask.reshape(-1, 1).float()
+            xf = x.reshape(-1, x.shape[-1]).float()
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf - mean).square() * m).sum(0) / cnt
+            self._update(mean, var)
+            y = (x.float() - mean) * (self.weight * torch.rsqrt(
+                var + self.eps)) + self.bias
+        return (y * mask[..., None]).to(x.dtype)
 
 
 class Linear(nn.Linear):
@@ -93,9 +129,11 @@ class LayerNorm(nn.LayerNorm):
 
 
 class ConvBNReLU(nn.Module):
-    """3x3 stride-1 Conv2d(bias=False) + eval BatchNorm + ReLU on NHWC, one
-    launch of kernel 4 (`conv3x3_bn_relu`): the head's `shared_conv`.
-    State: `conv.weight`, `bn.*`."""
+    """3x3 stride-1 Conv2d(bias=False) + BatchNorm + ReLU on NHWC: the head's
+    `shared_conv`. Eval: one launch of kernel 4 (`conv3x3_bn_relu`). Train:
+    `F.conv2d` + batch-statistics BN + ReLU under autograd, as the JAX
+    train path takes the XLA conv (kernel 4 has no backward). State:
+    `conv.weight`, `bn.*`."""
 
     def __init__(self, cin: int, cout: int, eps: float = 1e-5):
         super().__init__()
@@ -103,6 +141,9 @@ class ConvBNReLU(nn.Module):
         self.bn = BatchNorm(cout, eps)
 
     def forward(self, x_nhwc):
+        if self.training:
+            y = self.conv(x_nhwc.permute(0, 3, 1, 2))
+            return torch.relu(self.bn(y)).permute(0, 2, 3, 1)
         scale, bias = self.bn.fold()
         return conv3x3_bn_relu(x_nhwc.contiguous(), self.conv.weight, scale,
                                bias, relu=True)
@@ -119,8 +160,8 @@ class MLP(nn.Sequential):
 
 
 class FFN(nn.Module):
-    """mmcv FFN, eval: x + Linear(ReLU(Linear(x))) (state
-    `layers.0.0.*`, `layers.1.*`)."""
+    """mmcv FFN: x + Linear(ReLU(Linear(x))) (state `layers.0.0.*`,
+    `layers.1.*`); no dropout, as the JAX decoder's FFN dropout is 0.0."""
 
     def __init__(self, c: int, hidden: int, compute_dtype=torch.float32):
         super().__init__()

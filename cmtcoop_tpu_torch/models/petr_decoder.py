@@ -1,12 +1,19 @@
-"""DETR-style PETR decoder, eval (counterpart of
+"""DETR-style PETR decoder (counterpart of
 cmtcoop_tpu/models/petr_decoder.py).
 
 Layer order self_attn, norm, cross_attn, norm, ffn, norm (post-LN); the
 shared `post_norm` is applied to every intermediate output; the position
 encoding is added to queries and keys, not values; `memory + memory_pos` is
 computed once outside the layer loop. LayerNorm eps 1e-6 (flax's default).
-The self-attention is plain torch; the cross-attention runs kernel 3
-(`flash_attention_packed`) on the head-packed projections, unpadded.
+The self-attention is plain torch (`attend` with the DN bias as a 2D bias).
+The cross-attention runs kernel 3 (`flash_attention_packed`) on the
+head-packed projections in eval mode, and kernels 7 and 8
+(`attend(impl="flash")`) on (B, H, N, Dh) views of the same projections in
+train mode; neither pads. In train mode each attention drops its softmax
+weights and its output at `dropout` (the FFN's dropout is 0.0, as in the
+JAX decoder), and each layer is checkpointed (`remat`, the reference's
+with_cp). Every dropout seed of a layer is drawn before the layer runs, so
+the checkpoint's recompute draws the same masks.
 State keys follow the reference: `layers.{l}.attentions.0.attn.in_proj_*`
 (torch MultiheadAttention), `attentions.1.attn.Wqkv.*` (packed flash
 projection), `attentions.{0,1}.attn.out_proj.*`, `ffns.0.layers.*`,
@@ -14,13 +21,18 @@ projection), `attentions.{0,1}.attn.out_proj.*`, `ffns.0.layers.*`,
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cmtcoop_tpu_torch.models.layers import FFN, LayerNorm, Linear
-from cmtcoop_tpu_torch.ops.attention import (flash_attention_packed,
-                                             mha_reference)
+from cmtcoop_tpu_torch.ops.attention import (attend, dropout,
+                                             flash_attention_packed)
+
+SEEDS_PER_LAYER = 4  # self-attn P, its output, cross-attn P, its output
 
 
 def _qkv(x, weight, bias, i, dt):
@@ -29,10 +41,22 @@ def _qkv(x, weight, bias, i, dt):
                     bias[i * c:(i + 1) * c].to(dt))
 
 
+def _split(x, h):
+    """(B, N, C) -> (B, H, N, C/H) view."""
+    b, n, c = x.shape
+    return x.view(b, n, h, c // h).transpose(1, 2)
+
+
+def _merge(x):
+    """(B, H, N, Dh) -> (B, N, H*Dh)."""
+    b, h, n, dh = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * dh)
+
+
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (`in_proj_weight`,
-    `in_proj_bias`, `out_proj`), eval forward on (B, N, C) with plain
-    softmax attention."""
+    `in_proj_bias`, `out_proj`) on (B, N, C), plain softmax attention with
+    an optional additive bias and softmax dropout."""
 
     def __init__(self, c: int, heads: int, compute_dtype=torch.float32):
         super().__init__()
@@ -42,22 +66,22 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * c))
         self.out_proj = Linear(c, c, compute_dtype=compute_dtype)
 
-    def forward(self, q, k, v):
-        b, nq, c = q.shape
+    def forward(self, q, k, v, bias=None, dropout_rate: float = 0.0,
+                seed: int = 0):
         dt, h = self.compute_dtype, self.heads
-
-        def split(x):
-            return x.reshape(b, -1, h, c // h).transpose(1, 2)
-
-        qh, kh, vh = (split(_qkv(x, self.in_proj_weight, self.in_proj_bias,
-                                 i, dt)) for i, x in enumerate((q, k, v)))
-        out = mha_reference(qh, kh, vh)
-        return self.out_proj(out.transpose(1, 2).reshape(b, nq, c))
+        qh, kh, vh = (_split(_qkv(x, self.in_proj_weight, self.in_proj_bias,
+                                  i, dt), h) for i, x in enumerate((q, k, v)))
+        out = attend(qh, kh, vh, bias=bias, impl="reference",
+                     dropout_rate=dropout_rate, seed=seed)
+        return self.out_proj(_merge(out))
 
 
 class FlashMultiheadAttention(nn.Module):
-    """Cross-attention with a packed `Wqkv` projection and `out_proj`; the
-    attention itself is kernel 3 on (B, N, H*Dh) projections."""
+    """Cross-attention with a packed `Wqkv` projection and `out_proj`: kernel
+    3 on the (B, N, H*Dh) projections in eval mode; in train mode kernels 7
+    and 8 on their (B, H, N, Dh) views, with dropout. No key is masked: the
+    memory is not padded (the JAX decoder's `memory_k_bias` masks its
+    padding)."""
 
     def __init__(self, c: int, heads: int, compute_dtype=torch.float32):
         super().__init__()
@@ -66,13 +90,15 @@ class FlashMultiheadAttention(nn.Module):
         self.Wqkv = Linear(c, 3 * c, compute_dtype=compute_dtype)
         self.out_proj = Linear(c, c, compute_dtype=compute_dtype)
 
-    def forward(self, q, k, v):
-        dt = self.compute_dtype
+    def forward(self, q, k, v, dropout_rate: float = 0.0, seed: int = 0):
+        dt, h = self.compute_dtype, self.heads
         w, bias = self.Wqkv.weight, self.Wqkv.bias
-        out = flash_attention_packed(
-            _qkv(q, w, bias, 0, dt), _qkv(k, w, bias, 1, dt),
-            _qkv(v, w, bias, 2, dt), None, self.heads)
-        return self.out_proj(out)
+        qp, kp, vp = (_qkv(x, w, bias, i, dt) for i, x in enumerate((q, k, v)))
+        if not self.training:
+            return self.out_proj(flash_attention_packed(qp, kp, vp, None, h))
+        out = attend(_split(qp, h), _split(kp, h), _split(vp, h),
+                     impl="flash", dropout_rate=dropout_rate, seed=seed)
+        return self.out_proj(_merge(out))
 
 
 class _AttnSlot(nn.Module):
@@ -85,8 +111,9 @@ class _AttnSlot(nn.Module):
 
 class PETRDecoderLayer(nn.Module):
     def __init__(self, c: int = 256, heads: int = 8, ffn: int = 1024,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.attentions = nn.ModuleList([
             _AttnSlot(MultiheadAttention(c, heads, compute_dtype)),
             _AttnSlot(FlashMultiheadAttention(c, heads, compute_dtype))])
@@ -94,13 +121,17 @@ class PETRDecoderLayer(nn.Module):
         self.norms = nn.ModuleList(
             [LayerNorm(c, compute_dtype=compute_dtype) for _ in range(3)])
 
-    def forward(self, query, memory, query_pos, memory_pe):
+    def forward(self, query, memory, query_pos, memory_pe,
+                self_attn_bias=None,
+                seeds: Sequence[int] = (0,) * SEEDS_PER_LAYER):
+        rate = self.dropout if self.training else 0.0
         q = query + query_pos
-        out = self.attentions[0].attn(q, q, query)
-        query = self.norms[0](query + out)
+        out = self.attentions[0].attn(q, q, query, self_attn_bias, rate,
+                                      seeds[0])
+        query = self.norms[0](query + dropout(out, rate, seeds[1]))
         q = query + query_pos
-        out = self.attentions[1].attn(q, memory_pe, memory)
-        query = self.norms[1](query + out)
+        out = self.attentions[1].attn(q, memory_pe, memory, rate, seeds[2])
+        query = self.norms[1](query + dropout(out, rate, seeds[3]))
         return self.norms[2](self.ffns[0](query))
 
 
@@ -109,17 +140,32 @@ class PETRTransformerDecoder(nn.Module):
     the shared post_norm, stacked (L, B, Nq, C)."""
 
     def __init__(self, num_layers: int = 6, c: int = 256, heads: int = 8,
-                 ffn: int = 1024, compute_dtype=torch.float32):
+                 ffn: int = 1024, compute_dtype=torch.float32,
+                 dropout: float = 0.1, remat: bool = True):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
-            PETRDecoderLayer(c, heads, ffn, compute_dtype)
+            PETRDecoderLayer(c, heads, ffn, compute_dtype, dropout)
             for _ in range(num_layers)])
         self.post_norm = LayerNorm(c, compute_dtype=compute_dtype)
 
-    def forward(self, query, memory, query_pos, memory_pos):
+    def forward(self, query, memory, query_pos, memory_pos,
+                self_attn_bias=None,
+                generator: Optional[torch.Generator] = None):
+        """`generator` (a CPU generator) gives each layer's dropout seeds in
+        train mode."""
         memory_pe = memory + memory_pos
+        n = len(self.layers)
+        seeds = [[0] * SEEDS_PER_LAYER] * n
+        if self.training:
+            seeds = torch.randint(0, 2 ** 31 - 1, (n, SEEDS_PER_LAYER),
+                                  generator=generator).tolist()
         inter = []
-        for layer in self.layers:
-            query = layer(query, memory, query_pos, memory_pe)
+        for layer, s in zip(self.layers, seeds):
+            args = (query, memory, query_pos, memory_pe, self_attn_bias, s)
+            if self.training and self.remat:
+                query = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                query = layer(*args)
             inter.append(self.post_norm(query))
         return torch.stack(inter, dim=0)

@@ -1,10 +1,16 @@
-"""Pillar-dense sparse voxel encoder, eval flow (counterpart of
-`PillarSparseEncoder` in cmtcoop_tpu/models/pillar_encoder.py).
+"""Pillar-dense sparse voxel encoder (counterpart of `PillarSparseEncoder`
+in cmtcoop_tpu/models/pillar_encoder.py).
 
 The same function as mmdet3d's SparseEncoder (submanifold basic blocks,
 strided down convs, `conv_out`), on sparse BEV pillars carrying dense z
-tiles. Every convolution is one `fused_pillar_conv` (conv + folded BN +
-residual + ReLU + occupancy). State keys follow the reference
+tiles. Eval: every convolution is one `fused_pillar_conv` (conv + folded BN
++ residual + ReLU + occupancy, kernels 1 and 2). Train, as the JAX train
+path: the gather `pillar_conv` under autograd, each conv checkpointed (its
+gathered (P, KB, Z, C) tiles are recomputed in the backward; keeping them
+ran the JAX step out of memory), then BN with the statistics of the
+occupied rows (`BatchNorm.masked`, the JAX `MaskedBatchNorm`: eps 1e-3,
+flax momentum 0.99), ReLU and the occupancy mask. State keys follow the
+reference
 (`conv_input.0.weight` in spconv's (O, kz, ky, kx, I) layout, `conv_input.1`
 BN, `encoder_layers.encoder_layer{i}.{j}.conv1/norm1/conv2/norm2`, the down
 conv at index n_blocks, `conv_out.0/1`).
@@ -15,12 +21,13 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from cmtcoop_tpu_torch.models.layers import BatchNorm
 from cmtcoop_tpu_torch.ops import pillars as pu
 from cmtcoop_tpu_torch.ops.pillar_fused import fused_pillar_conv
 
-BN_EPS = 1e-3  # MaskedBatchNorm
+BN_EPS, BN_MOMENTUM = 1e-3, 0.99  # MaskedBatchNorm (flax momentum)
 DOWN_ZPADS = (1, 1, 0)
 
 
@@ -37,9 +44,27 @@ class SparseConvWeight(nn.Module):
         return w.permute(1, 2, 3, 4, 0).reshape(-1, w.shape[-1], w.shape[0])
 
 
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, BN_EPS, BN_MOMENTUM)
+
+
 def _conv_bn(cin: int, cout: int, k=(3, 3, 3)) -> nn.Sequential:
-    return nn.Sequential(SparseConvWeight(cin, cout, k), BatchNorm(cout,
-                                                                   BN_EPS))
+    return nn.Sequential(SparseConvWeight(cin, cout, k), _bn(cout))
+
+
+def train_conv(x, nbr, conv: SparseConvWeight, kz: int = 3,
+               z_stride: int = 1, z_pad: int = 1):
+    """The gather convolution under a checkpoint (train mode)."""
+    return checkpoint(pu.pillar_conv, x, nbr, conv.kernel(), kz, z_stride,
+                      z_pad, use_reentrant=False)
+
+
+def train_block(mod: nn.Sequential, x, nbr, occ_out, kz: int = 3,
+                z_stride: int = 1, z_pad: int = 1):
+    """conv + masked BN + ReLU + occupancy (the JAX `PillarConvBlock`,
+    train)."""
+    y = train_conv(x, nbr, mod[0], kz, z_stride, z_pad)
+    return torch.relu(mod[1].masked(y, occ_out)) * occ_out[..., None]
 
 
 class SparseBasicBlock(nn.Module):
@@ -49,11 +74,17 @@ class SparseBasicBlock(nn.Module):
     def __init__(self, c: int):
         super().__init__()
         self.conv1 = SparseConvWeight(c, c, (3, 3, 3))
-        self.norm1 = BatchNorm(c, BN_EPS)
+        self.norm1 = _bn(c)
         self.conv2 = SparseConvWeight(c, c, (3, 3, 3))
-        self.norm2 = BatchNorm(c, BN_EPS)
+        self.norm2 = _bn(c)
 
     def forward(self, x, nbr, occ):
+        if self.training:
+            m = occ[..., None]
+            y = torch.relu(self.norm1.masked(train_conv(x, nbr, self.conv1),
+                                             occ)) * m
+            y = self.norm2.masked(train_conv(y, nbr, self.conv2), occ)
+            return torch.relu(y + x) * m
         s1, b1 = self.norm1.fold()
         y = fused_pillar_conv(x, nbr, self.conv1.kernel(), scale=s1, bias=b1,
                               occ_out=occ, relu=True)
@@ -98,9 +129,13 @@ class PillarSparseEncoder(nn.Module):
         grid = pu.PillarGrid(pcoords, pmask, (h, w), d)
         x = feats.to(dtype)
         nbr = pu.pillar_neighbor_map(grid)
-        s, b = self.conv_input[1].fold()
-        x = fused_pillar_conv(x, nbr, self.conv_input[0].kernel(), scale=s,
-                              bias=b, occ_out=occ, relu=True)
+        train = self.training
+        if train:
+            x = train_block(self.conv_input, x, nbr, occ)
+        else:
+            s, b = self.conv_input[1].fold()
+            x = fused_pillar_conv(x, nbr, self.conv_input[0].kernel(),
+                                  scale=s, bias=b, occ_out=occ, relu=True)
         n_stages = len(self.encoder_channels)
         for i in range(n_stages):
             layer = getattr(self.encoder_layers, f"encoder_layer{i + 1}")
@@ -114,10 +149,14 @@ class PillarSparseEncoder(nn.Module):
             out_grid = pu.pillar_downsample_grid(grid, cap)
             nbr_dn = pu.pillar_conv_neighbor_map(grid, out_grid)
             zp = DOWN_ZPADS[i]
-            s, b = down[1].fold()
-            x, occ = fused_pillar_conv(
-                x, nbr_dn, down[0].kernel(), z_stride=2, z_pad=zp, scale=s,
-                bias=b, relu=True, occ_in=occ, fold_occ=True)
+            if train:
+                occ = pu.occ_downsample(occ, nbr_dn, 3, 2, zp)
+                x = train_block(down, x, nbr_dn, occ, z_stride=2, z_pad=zp)
+            else:
+                s, b = down[1].fold()
+                x, occ = fused_pillar_conv(
+                    x, nbr_dn, down[0].kernel(), z_stride=2, z_pad=zp,
+                    scale=s, bias=b, relu=True, occ_in=occ, fold_occ=True)
             grid = out_grid
             nbr = pu.pillar_neighbor_map(grid)
 
@@ -125,10 +164,14 @@ class PillarSparseEncoder(nn.Module):
         # identity map
         ident = pu.identity_map(grid)
         occ_out = pu.occ_downsample(occ, ident, 3, 2, 0)
-        s, b = self.conv_out[1].fold()
-        x = fused_pillar_conv(x, ident, self.conv_out[0].kernel(), kz=3,
-                              z_stride=2, z_pad=0, scale=s, bias=b,
-                              occ_out=occ_out, relu=True)
+        if train:
+            x = train_block(self.conv_out, x, ident, occ_out, z_stride=2,
+                            z_pad=0)
+        else:
+            s, b = self.conv_out[1].fold()
+            x = fused_pillar_conv(x, ident, self.conv_out[0].kernel(), kz=3,
+                                  z_stride=2, z_pad=0, scale=s, bias=b,
+                                  occ_out=occ_out, relu=True)
         dense = pu.pillars_to_dense(
             pu.PillarGrid(grid.coords, grid.mask, grid.hw, x.shape[1]), x)
         hh, ww, zc = dense.shape

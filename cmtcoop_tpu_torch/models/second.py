@@ -1,9 +1,10 @@
-"""SECOND dense BEV backbone + SECONDFPN neck, eval (counterpart of
+"""SECOND dense BEV backbone + SECONDFPN neck (counterpart of
 cmtcoop_tpu/models/second.py).
 
 Plain dense convolutions: the JAX package leaves them to XLA, the port to
 `F.conv2d` / `F.conv_transpose2d`. NHWC at the module boundary, NCHW in
-channels-last memory inside. BN eps 1e-3. State keys follow mmdet3d
+channels-last memory inside. BN eps 1e-3, flax momentum 0.99 (torch 0.01)
+in train mode. State keys follow mmdet3d
 (`blocks.{i}.{3j}` conv, `.{3j+1}` BN; `deblocks.{i}.0` conv or deconv,
 `.1` BN).
 """
@@ -17,7 +18,7 @@ import torch.nn as nn
 from cmtcoop_tpu_torch.models.layers import (BatchNorm, Conv2d,
                                              ConvTranspose2d)
 
-BN_EPS = 1e-3
+BN_EPS, BN_MOMENTUM = 1e-3, 0.99
 
 
 def _to_nchw(x):
@@ -36,7 +37,7 @@ class SECOND(nn.Module):
             mods = []
             for j in range(n + 1):
                 mods += [Conv2d(cin, cout, 3, stride if j == 0 else 1),
-                         BatchNorm(cout, BN_EPS), nn.ReLU()]
+                         BatchNorm(cout, BN_EPS, BN_MOMENTUM), nn.ReLU()]
                 cin = cout
             blocks.append(nn.Sequential(*mods))
         self.blocks = nn.ModuleList(blocks)
@@ -60,8 +61,8 @@ class SECONDFPN(nn.Module):
         for cin, cout, s in zip(in_channels, out_channels, upsample_strides):
             up = (ConvTranspose2d(cin, cout, s, s) if s > 1
                   else Conv2d(cin, cout, 1))
-            deblocks.append(nn.Sequential(up, BatchNorm(cout, BN_EPS),
-                                          nn.ReLU()))
+            deblocks.append(nn.Sequential(
+                up, BatchNorm(cout, BN_EPS, BN_MOMENTUM), nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)
 
     def forward(self, feats):

@@ -1,5 +1,5 @@
-"""VoVNet image backbone and CPFPN neck, eval, on NHWC tensors
-(counterparts of cmtcoop_tpu/models/vovnet.py and of its TPU eval path,
+"""VoVNet image backbone and CPFPN neck on NHWC tensors (counterparts of
+cmtcoop_tpu/models/vovnet.py and of its TPU eval path,
 cmtcoop_tpu/models/vovnet_cf.py).
 
 - The three stem convs (3x3, strides 2/1/2, torch padding) are plain
@@ -10,6 +10,13 @@ cmtcoop_tpu/models/vovnet_cf.py).
   identity is added after the eSE scale, for every block after a stage's
   first. eSE runs in every block, whatever the reference's SE flag says.
 - Stages 3 to 5 start with a 3x3 stride-2 ceil-mode max pool.
+- Train mode (the JAX train path): every conv is a plain `F.conv2d` and
+  the aggregate a `torch.cat` + 1x1 conv under autograd (kernels 4 and 6
+  have no backward); BN stays frozen at its running statistics
+  (`norm_eval`, the reference's vovnet.py:381-390) while its affine gets
+  gradients; each OSA block is checkpointed (`remat`, as the JAX
+  package's `nn.remat(OSAModule)`), which is safe because frozen BN makes
+  a block a pure function. CPFPN has no BN and is the same in both modes.
 
 State keys follow the reference (`stem.stem_1/conv.weight`,
 `stage4.OSA4_2.layers.3.OSA4_2_3/norm.running_var`,
@@ -24,6 +31,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from cmtcoop_tpu_torch.models.layers import BatchNorm, Conv2d
 from cmtcoop_tpu_torch.ops.conv_cf import conv3x3_bn_relu, osa_aggregate
@@ -67,6 +76,13 @@ def max_pool_ceil(x):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def _bn_relu(y, bn: BatchNorm):
+    """Frozen BN (its running statistics; the affine stays differentiable)
+    + ReLU, computed in float32, in y's dtype."""
+    s, b = bn.fold()
+    return torch.relu(y.float() * s + b).to(y.dtype)
+
+
 def _conv_unit(name: str, cin: int, cout: int, k: int, stride: int = 1):
     """The reference's conv unit: `{name}/conv` (no bias), `{name}/norm`,
     `{name}/relu`."""
@@ -102,15 +118,30 @@ class OSAModule(nn.Module):
             1)))
         self.ese = eSE(concat_ch)
 
-    def forward(self, x):
+    def _plain(self, x):
+        """The block's convs and aggregate as plain ops under autograd
+        (train mode), BN folded at its running statistics."""
         parts = [x]
         for layer in self.layers:
-            parts.append(conv3x3_bn_relu(parts[-1], layer[0].weight,
-                                         *layer[1].fold()))
-        scale, bias = self.concat[1].fold()
-        agg, gap = osa_aggregate(parts, self.concat[0].weight[:, :, 0, 0].t(),
-                                 scale, bias)
-        # eSE from the gap by-product: mean, float32 fc, hard sigmoid
+            y = conv2d_nhwc(parts[-1], layer[0].weight, padding=1)
+            parts.append(_bn_relu(y, layer[1]))
+        agg = _bn_relu(conv2d_nhwc(torch.cat(parts, dim=-1),
+                                   self.concat[0].weight), self.concat[1])
+        return agg, agg.float().sum(dim=(1, 2))
+
+    def forward(self, x):
+        if self.training:
+            agg, gap = self._plain(x)
+        else:
+            parts = [x]
+            for layer in self.layers:
+                parts.append(conv3x3_bn_relu(parts[-1], layer[0].weight,
+                                             *layer[1].fold()))
+            scale, bias = self.concat[1].fold()
+            agg, gap = osa_aggregate(parts,
+                                     self.concat[0].weight[:, :, 0, 0].t(),
+                                     scale, bias)
+        # eSE from the spatial sums: mean, float32 fc, hard sigmoid
         fc = self.ese.fc
         s = gap / float(x.shape[1] * x.shape[2])
         s = s @ fc.weight[:, :, 0, 0].t().float() + fc.bias.float()
@@ -153,10 +184,9 @@ class VoVNet(nn.Module):
     def forward(self, x) -> Dict[str, torch.Tensor]:
         units = list(self.stem)
         for conv, bn in zip(units[0::3], units[1::3]):
-            s, b = bn.fold()
             y = conv2d_nhwc(x, conv.weight, stride=conv.stride,
                             padding=conv.padding)
-            x = torch.relu(y.float() * s + b).to(x.dtype).contiguous()
+            x = _bn_relu(y, bn).contiguous()
         outputs = {}
         if "stem" in self.out_features:
             outputs["stem"] = x
@@ -164,7 +194,9 @@ class VoVNet(nn.Module):
             name = f"stage{i + 2}"
             if i:
                 x = max_pool_ceil(x)
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = (checkpoint(block, x, use_reentrant=False)
+                     if self.training else block(x))
             if name in self.out_features:
                 outputs[name] = x
         return outputs

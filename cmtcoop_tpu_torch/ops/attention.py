@@ -1,13 +1,33 @@
-"""Eval attention on head-packed projections (counterpart of
-`flash_attention_packed` in cmtcoop_tpu/ops/attention.py).
+"""Attention (counterpart of cmtcoop_tpu/ops/attention.py), on the JAX
+package's (B, H, N, Dh) layout at the public functions unless said.
 
-`flash_attention_packed` takes the plain version for a CPU tensor and
-launches the hand-written CUDA kernel (csrc/flash_attention.cu, kernel 3)
-for a CUDA tensor. The kernel masks the ragged query and key edges itself,
-so callers pad nothing.
+- `flash_attention_packed`: eval attention on head-packed (B, N, H*Dh)
+  projections, kernel 3 (csrc/flash_attention.cu).
+- `flash_attention_kvmask`: the training forward with a per-key bias,
+  in-kernel inverted dropout and optional (m, l) statistics, kernel 7;
+  `flash_attention_bwd`: its FlashAttention-2 backward, kernel 8 (a dQ
+  launch and a dK / dV / d(k_bias) launch on one argument block), both in
+  csrc/flash_train.cu; `flash_attention_diff` ties them into a
+  `torch.autograd.Function`, and `attend` picks the flash kernels or the
+  plain attention.
+
+Each wrapper takes its plain version for a CPU tensor and launches its
+hand-written CUDA kernel for a CUDA tensor. The kernels mask the ragged
+query and key edges themselves, so callers pad nothing, and kernels 7 and 8
+read (B, H, N, Dh) views through their strides, so the decoder never copies
+its (B, N, H*Dh) projections into (B, H, N, Dh).
+
+Dropout cannot reproduce the TPU's bits. In kernels 7 and 8 the keep bit
+of element (bh, i, j) is a counter-based hash of (seed, bh, i, j)
+(`dropout_keep`, computed exactly in int64 here and in uint32 in the
+kernels), so the forward, both backward launches, a checkpoint's recompute
+and the plain versions regenerate the same mask whatever their tiling. The
+other dropouts (`dropout_mask`) draw from a generator seeded by an integer,
+which a checkpoint's recompute also reproduces.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -17,16 +37,79 @@ from cmtcoop_tpu_torch import _build
 
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
+TRAIN_HEAD_DIMS = (8, 32)  # kernels 7 and 8: the presets' head widths
+
+_M32 = 0xFFFFFFFF
 
 
-def mha_reference(q, k, v, bias: Optional[torch.Tensor] = None):
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser on int64 values in [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """A 32-bit hash at or above this is kept (`_dropout_keep`'s
+    threshold)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def dropout_keep(seed: int, rate: float, bh: int, nq: int, nk: int,
+                 device=None, bh0: int = 0) -> torch.Tensor:
+    """(bh, nq, nk) bool keep mask of elements (bh0 + b, i, j): the hash
+    fmix32(fmix32(fmix32(seed + bh * 0x9E3779B9) ^ i * 0x85EBCA77) ^
+    j * 0xC2B2AE3D) >= `dropout_threshold(rate)`, the function kernels 7
+    and 8 compute."""
+    def ar(lo, n):
+        return torch.arange(lo, lo + n, dtype=torch.int64, device=device)
+    base = _fmix32((int(seed) + _mul32(ar(bh0, bh), 0x9E3779B9)) & _M32)
+    row = _fmix32(base[:, None] ^ _mul32(ar(0, nq), 0x85EBCA77)[None])
+    h = _fmix32(row[:, :, None] ^ _mul32(ar(0, nk), 0xC2B2AE3D)[None, None])
+    return h >= dropout_threshold(rate)
+
+
+def dropout_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
+    """Bool keep mask of `shape`, kept with probability 1 - rate, drawn on
+    `device` from a generator seeded with `seed` alone, so a checkpoint's
+    recompute draws the same mask (a `torch.Generator` passed in would not
+    be restored by `torch.utils.checkpoint`)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.rand(shape, generator=gen, device=device) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout (flax `nn.Dropout`: kept values / (1 - rate)) with
+    the mask of `dropout_mask`."""
+    if rate <= 0.0:
+        return x
+    keep = dropout_mask(x.shape, rate, seed, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def mha_reference(q, k, v, bias: Optional[torch.Tensor] = None,
+                  dropout_rate: float = 0.0,
+                  keep: Optional[torch.Tensor] = None):
     """Plain softmax attention on (B, H, N, Dh), float32 logits; `bias`
-    additive, broadcastable to (B, H, Nq, Nk)."""
+    additive, broadcastable to (B, H, Nq, Nk). With `dropout_rate` > 0,
+    inverted dropout after the softmax with no renormalisation (torch's
+    attn_drop), `keep` a bool mask broadcastable to (B, H, Nq, Nk)."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     logits = logits / math.sqrt(q.shape[-1])
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros_like(probs))
     return torch.matmul(probs, v.float()).to(v.dtype)
 
 
@@ -79,3 +162,280 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "cmt_flash_attention_packed")
     _build.count("flash_attention_packed")
     return out
+
+
+# ----------------------- training attention (kernels 7 and 8) ---------------
+
+class _FlashArgs(ctypes.Structure):
+    """Mirror of `FlashArgs` in csrc/flash_train.cu (every field 8 bytes)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "dout", "kbias", "m", "l", "delta", "out", "dq", "dk",
+        "dv", "m_out", "l_out", "dkb")]
+        + [(n, ctypes.c_longlong * 3) for n in ("sq", "sk", "sv", "sdo")]
+        + [(n, ctypes.c_longlong) for n in (
+            "B", "H", "nq", "nk", "dh", "dtype", "seed", "thresh")]
+        + [("scale", ctypes.c_double), ("keep_scale", ctypes.c_double)])
+
+
+def _keep_factor(seed, rate, b, h, nq, nk, device):
+    """(B, H, Nq, Nk) float32 keep factor of the kernels' dropout: 1/(1-rate)
+    where `dropout_keep` keeps, else 0."""
+    keep = dropout_keep(seed, rate, b * h, nq, nk, device)
+    return keep.reshape(b, h, nq, nk).float() * (1.0 / (1.0 - rate))
+
+
+def _logits(q, k, k_bias):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return s + k_bias.float()[:, None, None, :]
+
+
+def flash_attention_kvmask_reference(q, k, v, k_bias, with_stats=False,
+                                     dropout_rate=0.0, seed=0):
+    """Plain version of kernel 7, on (B, H, N, Dh): s = q.k / sqrt(Dh) +
+    k_bias[key] in float32, m = max(NEG_INF, max_j s), l = sum_j exp(s - m),
+    out = (dropout(exp(s - m)) @ v) / max(l, 1e-30): the keep mask scales
+    the numerator only, so l stays the full softmax sum."""
+    b, h, nq, _ = q.shape
+    s = _logits(q, k, k_bias)
+    m = s.amax(-1).clamp(min=NEG_INF)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    if dropout_rate > 0.0:
+        p = p * _keep_factor(seed, dropout_rate, b, h, nq, k.shape[2],
+                             q.device)
+    out = (torch.matmul(p, v.float()) / l.clamp(min=1e-30)[..., None]).to(
+        q.dtype)
+    return (out, m, l) if with_stats else out
+
+
+def flash_attention_bwd_reference(q, k, v, k_bias, out, m, l, dout,
+                                  dropout_rate=0.0, seed=0):
+    """Plain version of kernel 8 (`_flash_backward`'s arithmetic): P
+    recomputed from (m, l), the keep mask replayed on P and on dP,
+    dS = P * (dP - delta) with delta = rowsum(dO * O); returns dq, dk, dv
+    and d(k_bias) (B, Nk) summed over queries and heads."""
+    b, h, nq, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    do = dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    p = torch.exp(_logits(q, k, k_bias) - m[..., None]) / l.clamp(
+        min=1e-30)[..., None]
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    pv = p
+    if dropout_rate > 0.0:
+        kf = _keep_factor(seed, dropout_rate, b, h, nq, k.shape[2], q.device)
+        pv, dp = p * kf, dp * kf
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(pv.transpose(-1, -2), do)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            ds.sum(dim=(1, 2)).to(k_bias.dtype))
+
+
+def _strides(name, t, shape, dtype, dev):
+    """(batch, head, row) strides of a (B, H, N, Dh) view with unit stride
+    along Dh, or raise."""
+    if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+            or t.stride(-1) != 1):
+        raise ValueError(f"flash attention: {name} must be a {shape} view in "
+                         f"{dtype} on {dev} with unit stride along Dh, got "
+                         f"{tuple(t.shape)} {t.dtype} {t.device} strides "
+                         f"{t.stride()}")
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def _train_args(q, k, v, k_bias, dropout_rate, seed):
+    """The kernels' argument block for q (B, H, Nq, Dh), k / v (B, H, Nk, Dh)
+    views and k_bias (B, Nk), with the checks the kernels rely on."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    dev = q.device
+    if dh not in TRAIN_HEAD_DIMS or q.dtype not in (torch.float32,
+                                                     torch.bfloat16):
+        raise ValueError(f"flash attention: Dh {dh} (one of "
+                         f"{TRAIN_HEAD_DIMS}) in float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if k_bias.shape != (b, nk) or k_bias.dtype != torch.float32 or \
+            not k_bias.is_contiguous():
+        raise ValueError("flash attention: k_bias must be contiguous float32 "
+                         "(B, Nk)")
+    if not 0 <= int(seed) < 2 ** 32 or not 0.0 <= dropout_rate < 1.0:
+        raise ValueError("flash attention: seed in [0, 2^32), rate in [0, 1)")
+    a = _FlashArgs()
+    a.q, a.k, a.v, a.kbias = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              k_bias.data_ptr())
+    a.sq = _strides("q", q, (b, h, nq, dh), q.dtype, dev)
+    a.sk = _strides("k", k, (b, h, nk, dh), q.dtype, dev)
+    a.sv = _strides("v", v, (b, h, nk, dh), q.dtype, dev)
+    a.B, a.H, a.nq, a.nk, a.dh = b, h, nq, nk, dh
+    a.dtype = _build.dtype_code(q.dtype)
+    a.seed = int(seed)
+    a.thresh = dropout_threshold(dropout_rate) if dropout_rate > 0.0 else 0
+    a.scale = 1.0 / math.sqrt(dh)
+    a.keep_scale = 1.0 / (1.0 - dropout_rate)
+    return a
+
+
+def _launch(name: str, a: _FlashArgs, dev) -> None:
+    fn = getattr(_build.lib(), "cmt_" + name)
+    _build.check(fn(ctypes.addressof(a), _build.stream_ptr(dev)),
+                 "cmt_" + name)
+    _build.count(name)
+
+
+def flash_attention_kvmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           k_bias: Optional[torch.Tensor] = None,
+                           with_stats: bool = False,
+                           dropout_rate: float = 0.0, seed: int = 0):
+    """Training flash forward, kernel 7 (counterpart of the JAX
+    `flash_attention_kvmask`): q (B, H, Nq, Dh), k / v (B, H, Nk, Dh), any
+    views with unit stride along Dh; k_bias (B, Nk) additive (None = no
+    mask). Inverted dropout of the normalised P with the keep mask of
+    `dropout_keep(seed, ...)` when `dropout_rate` > 0. Returns out
+    (B, H, Nq, Dh) (a view of a (B, Nq, H, Dh) tensor on the card), and with
+    `with_stats` also m and l (B, H, Nq) float32."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    if k_bias is None:
+        k_bias = torch.zeros(b, nk, dtype=torch.float32, device=q.device)
+    if q.device.type == "cpu":
+        return flash_attention_kvmask_reference(q, k, v, k_bias, with_stats,
+                                                dropout_rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_kvmask: no kernel for {q.device}")
+    a = _train_args(q, k, v, k_bias, dropout_rate, seed)
+    out = torch.empty(b, nq, h, dh, dtype=q.dtype, device=q.device)
+    a.out = out.data_ptr()
+    m = l = None
+    if with_stats:
+        m = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        a.m_out, a.l_out = m.data_ptr(), l.data_ptr()
+    _launch("flash_train_fwd", a, q.device)
+    out = out.transpose(1, 2)
+    return (out, m, l) if with_stats else out
+
+
+def _bwd_args(q, k, v, k_bias, out, m, l, dout, dropout_rate, seed):
+    """Kernel 8's argument block, with delta = rowsum(dO * O) computed here
+    (as JAX does outside its kernels); returns it and the tensors it points
+    to, which the caller keeps alive until the launches are enqueued."""
+    b, h, nq, dh = q.shape
+    a = _train_args(q, k, v, k_bias, dropout_rate, seed)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    a.sdo = _strides("dout", dout, (b, h, nq, dh), q.dtype, q.device)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    m, l = m.contiguous(), l.contiguous()
+    for name, t in (("m", m), ("l", l)):
+        if t.shape != (b, h, nq) or t.dtype != torch.float32:
+            raise ValueError(f"flash_attention_bwd: {name} must be float32 "
+                             "(B, H, Nq)")
+    a.dout, a.m, a.l, a.delta = (dout.data_ptr(), m.data_ptr(),
+                                 l.data_ptr(), delta.data_ptr())
+    return a, (dout, delta, m, l)
+
+
+def _bwd_dq(a: _FlashArgs, q) -> torch.Tensor:
+    """Kernel 8's dQ launch on a prepared block (one block per (bh,
+    64-query tile), walking the keys): dq as a (B, H, Nq, Dh) view."""
+    b, h, nq, dh = q.shape
+    dq = torch.empty(b, nq, h, dh, dtype=q.dtype, device=q.device)
+    a.dq = dq.data_ptr()
+    _launch("flash_train_bwd_dq", a, q.device)
+    return dq.transpose(1, 2)
+
+
+def _bwd_dkv(a: _FlashArgs, k, k_bias, with_dk_bias: bool = True):
+    """Kernel 8's dK / dV / d(k_bias) launch on a prepared block (one block
+    per (bh, 64-key tile), walking the queries): dk, dv as (B, H, Nk, Dh)
+    views and d(k_bias) (B, Nk), its per-head sums added here, or None
+    (not written) without `with_dk_bias`."""
+    b, h, nk, dh = k.shape
+    dk = torch.empty(b, nk, h, dh, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    dkb = (torch.empty(b, h, nk, dtype=torch.float32, device=k.device)
+           if with_dk_bias else None)
+    a.dk, a.dv = dk.data_ptr(), dv.data_ptr()
+    a.dkb = dkb.data_ptr() if with_dk_bias else None
+    _launch("flash_train_bwd_dkv", a, k.device)
+    return (dk.transpose(1, 2), dv.transpose(1, 2),
+            dkb.sum(1).to(k_bias.dtype) if with_dk_bias else None)
+
+
+def flash_attention_bwd(q, k, v, k_bias, out, m, l, dout,
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        with_dk_bias: bool = True):
+    """FlashAttention-2 backward, kernel 8 (counterpart of the JAX
+    `_flash_backward`): the dQ launch, then the dK / dV / d(k_bias) launch,
+    both recomputing P from the forward's (m, l) and replaying its dropout
+    mask. Returns dq, dk, dv ((B, H, N, Dh) views) and d(k_bias) (B, Nk),
+    summed over queries and heads (None without `with_dk_bias`)."""
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_reference(q, k, v, k_bias, out, m, l,
+                                              dout, dropout_rate, seed)
+        return grads if with_dk_bias else grads[:3] + (None,)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    a, keep = _bwd_args(q, k, v, k_bias, out, m, l, dout, dropout_rate, seed)
+    return (_bwd_dq(a, q),) + _bwd_dkv(a, k, k_bias, with_dk_bias)
+
+
+class _FlashDiff(torch.autograd.Function):
+    """Kernel 7 forward (with stats) and kernel 8 backward (the JAX
+    `flash_attention_diff` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_bias, dropout_rate, seed):
+        out, m, l = flash_attention_kvmask(q, k, v, k_bias, True,
+                                           dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, k_bias, out, m, l)
+        ctx.rate, ctx.seed = dropout_rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, k_bias, out, m, l = ctx.saved_tensors
+        dq, dk, dv, dkb = flash_attention_bwd(q, k, v, k_bias, out, m, l,
+                                              dout, ctx.rate, ctx.seed,
+                                              ctx.needs_input_grad[3])
+        return dq, dk, dv, dkb, None, None
+
+
+def flash_attention_diff(q, k, v, k_bias=None, seed: int = 0,
+                         dropout_rate: float = 0.0) -> torch.Tensor:
+    """Differentiable training attention on (B, H, N, Dh): kernel 7 forward,
+    kernel 8 backward (plain versions on the CPU). `seed` selects the
+    dropout mask; nothing of size Nq x Nk is kept for the backward."""
+    if k_bias is None:
+        k_bias = torch.zeros(q.shape[0], k.shape[2], dtype=torch.float32,
+                             device=q.device)
+    return _FlashDiff.apply(q, k, v, k_bias, float(dropout_rate), int(seed))
+
+
+def attend(q, k, v, bias=None, k_bias=None, impl: str = "reference",
+           dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """The JAX `attend` with its two paths named by the caller: the flash
+    kernels for long-KV attention with at most a per-key bias
+    (`impl="flash"`), the plain `mha_reference` otherwise (the DN-masked
+    self-attention), its dropout mask from `dropout_mask(seed)`. Nothing is
+    padded: the kernels mask the ragged edges."""
+    if impl not in ("flash", "reference"):
+        raise ValueError(f"attend: impl must be 'flash' or 'reference', got "
+                         f"{impl!r}")
+    if impl == "flash":
+        if bias is not None:
+            raise ValueError(
+                "attend(impl='flash') cannot apply a 2D attention bias; use "
+                "k_bias for KV padding or impl='reference' for DN masks")
+        return flash_attention_diff(q, k, v, k_bias, seed, dropout_rate)
+    if k_bias is not None:
+        kb = k_bias[:, None, None, :]
+        bias = kb if bias is None else bias + kb
+    keep = None
+    if dropout_rate > 0.0:
+        keep = dropout_mask((q.shape[0], q.shape[1], q.shape[2], k.shape[2]),
+                            dropout_rate, seed, q.device)
+    return mha_reference(q, k, v, bias, dropout_rate, keep)

@@ -140,22 +140,26 @@ def pillar_conv(feats: torch.Tensor, nbr: torch.Tensor,
     (kz*KB, Cin, Cout) z-major. Weights are cast to the feature dtype, the
     products run in float32 and the result is cast back to the feature
     dtype, as in the JAX package. Chunks of `chunk` output pillars bound the
-    gathered tiles."""
+    gathered tiles. The rows are gathered with `index_select` from a float32
+    copy, so under autograd the backward is a float32 `index_add_` (the
+    backward of an advanced-indexing gather, a sort-based kernel, took most
+    of the full-width train step on the card)."""
     p_in, z_in, cin = feats.shape
     p_out, kb = nbr.shape
     cout = weights.shape[2]
     z_out = (z_in + 2 * z_pad - kz) // z_stride + 1
     cdt = torch.promote_types(feats.dtype, torch.float32)
     w3 = weights.to(feats.dtype).to(cdt).reshape(kz, kb * cin, cout)
-    padded = torch.cat([feats, feats.new_zeros(1, z_in, cin)], dim=0)
+    padded = torch.cat([feats, feats.new_zeros(1, z_in, cin)], dim=0).to(cdt)
     if z_pad:
         padded = torch.nn.functional.pad(padded, (0, 0, z_pad, z_pad))
     zp = padded.shape[1]
     span = (z_out - 1) * z_stride + 1
     outs = []
     for s in range(0, p_out, chunk):
-        nb = nbr[s:s + chunk].long()
-        x = padded[nb].to(cdt).permute(0, 2, 1, 3).reshape(-1, zp, kb * cin)
+        nb = nbr[s:s + chunk].reshape(-1).long()
+        x = padded.index_select(0, nb).view(-1, kb, zp, cin).permute(
+            0, 2, 1, 3).reshape(-1, zp, kb * cin)
         acc = x[:, 0:span:z_stride] @ w3[0]
         for dz in range(1, kz):
             acc = acc + x[:, dz:dz + span:z_stride] @ w3[dz]

@@ -2,10 +2,17 @@
 `torch.profiler` trace on the card:
 
     python -m cmtcoop_tpu_torch.profile_path [--preset NAME] [--out DIR]
+    python -m cmtcoop_tpu_torch.profile_path --train [--out DIR]
 
 Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
 flagship `cmt_fusion_coop_tumtraf` by default), runs one frame to warm up,
-then traces 3 frames. From that one trace it reads, per frame:
+then traces 3 frames. With `--train` it builds the full-width train step
+(main_path.py `build_train_path`), runs one step to warm up and traces one
+step: the frame is then the step, and the stages add `forward` (what no
+finer forward stage holds), `loss + Hungarian`, `backward` (the checkpoint
+recomputes included) and `optimizer`, and `stage_host_ms` gives each
+stage's host span (the Hungarian's share of the step is the host part of
+`loss + Hungarian`). From that one trace it reads, per frame:
 
 - `frame_ms`: the host span of a frame, from its start to its
   synchronisation, profiler on (its per-op host cost lengthens the frame,
@@ -18,7 +25,8 @@ then traces 3 frames. From that one trace it reads, per frame:
   to the stage whose host span launched it (`rv pe`: the image tokens' and
   the queries' RV position encodings; `other`: the BEV query embedding, the
   fusion and the decode);
-- `top_kernels_ms`: the device time of the busiest kernels by name.
+- `top_kernels_ms`: the device time of the busiest kernels by name, and
+  `train_kernels_ms` that of kernels 7 and 8 (`flash_train_*`).
 
 It prints the summary as JSON and writes it, with the Chrome trace, to
 `--out` (default `build/profile/` in the checkout).
@@ -52,6 +60,8 @@ HEAD_STAGES = {"head memory": ("build_memory",),
                "rv pe": ("_rv_pe", "_rv_query_embed"),
                "decoder": ("run_decoder",), "task heads": ("run_task_heads",)}
 STAGES = tuple(AGENT_STAGES) + tuple(HEAD_STAGES)
+# the train step's own spans (train/train_step.py `make_train_step`)
+TRAIN_STAGES = ("forward", "loss + Hungarian", "backward", "optimizer")
 N_FRAMES = 3
 
 
@@ -86,9 +96,11 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
-def summarize(trace: dict, n_frames: int) -> dict:
+def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
     """Per-frame numbers from a Chrome trace of `n_frames` frames, each
-    inside a host span named `frame` (times in the trace are us)."""
+    inside a host span named `frame` (times in the trace are us); device
+    ops charged to the innermost of the `stage_names` spans that launched
+    them."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     spans = [e for e in events if e.get("cat") == "user_annotation"]
     frames = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
@@ -97,7 +109,10 @@ def summarize(trace: dict, n_frames: int) -> dict:
         raise ValueError(f"trace holds {len(frames)} frame spans, not "
                          f"{n_frames}")
     stages = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in spans
-              if e["name"] in STAGES]
+              if e["name"] in stage_names]
+    host_us = defaultdict(float)
+    for s0, s1, name in stages:
+        host_us[name] += s1 - s0
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in LAUNCH_CATS
                 and "correlation" in e.get("args", {})}
@@ -125,45 +140,77 @@ def summarize(trace: dict, n_frames: int) -> dict:
         frames=n_frames, frame_ms=span_ms / n_frames,
         device_busy_ms=busy_ms / n_frames, idle_share=1 - busy_ms / span_ms,
         stage_device_ms={k: stage_us[k] / 1e3 / n_frames
-                         for k in STAGES + ("other",) if k in stage_us},
-        top_kernels_ms={k: v / 1e3 / n_frames for k, v in top})
+                         for k in tuple(stage_names) + ("other",)
+                         if k in stage_us},
+        stage_host_ms={k: host_us[k] / 1e3 / n_frames for k in stage_names
+                       if k in host_us},
+        top_kernels_ms={k: v / 1e3 / n_frames for k, v in top},
+        train_kernels_ms={k: v / 1e3 / n_frames for k, v in kernel_us.items()
+                          if "flash_train" in k})
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--preset", default=main_path.FUSION_PRESET,
                         choices=main_path.PATHS)
+    parser.add_argument("--train", action="store_true",
+                        help="trace one full-width train step instead")
     parser.add_argument("--out", default=str(
         Path(__file__).resolve().parents[1] / "build" / "profile"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: needs a CUDA device")
-    model, batch = main_path.build_main_path(torch.device("cuda"),
-                                             args.preset)
-    instrument(model)
+    dev = torch.device("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        main_path.frame(model, batch)  # warm-up: the build, first launches
+    if args.train:
+        model, batch, _, step = main_path.build_train_path(
+            dev, span=torch.profiler.record_function)
+        instrument(model)
+        n, stage_names = 1, STAGES + TRAIN_STAGES
+        step(batch)  # warm-up: the build, first launches
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(N_FRAMES):
-            main_path.frame(model, batch)
-        untraced_ms = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        step(batch)
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(N_FRAMES):
-                with torch.profiler.record_function("frame"):
-                    main_path.frame(model, batch)
+            with torch.profiler.record_function("frame"):
+                step(batch)
+                torch.cuda.synchronize()
+    else:
+        model, batch = main_path.build_main_path(dev, args.preset)
+        instrument(model)
+        n, stage_names = N_FRAMES, STAGES
+        with torch.inference_mode():
+            main_path.frame(model, batch)  # warm-up: the build, launches
+            t0 = time.perf_counter()
+            for _ in range(n):
+                main_path.frame(model, batch)
+            untraced_ms = (time.perf_counter() - t0) * 1e3 / n
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(n):
+                    with torch.profiler.record_function("frame"):
+                        main_path.frame(model, batch)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     trace_path = out / "trace.json"
     prof.export_chrome_trace(str(trace_path))
-    summary = summarize(json.loads(trace_path.read_text()), N_FRAMES)
-    summary["preset"] = args.preset
+    summary = summarize(json.loads(trace_path.read_text()), n, stage_names)
+    summary["preset"] = main_path.TRAIN_PATH if args.train else args.preset
     summary["untraced_frame_ms"] = untraced_ms
-    summary["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    if args.train:
+        summary["traced_peak_memory_gib"] = (
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+    summary["card"] = _card()
     (out / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary, indent=1), flush=True)
     return summary

@@ -127,6 +127,7 @@ def test_vovnet_and_cpfpn_match_flax(rng):
                                  "img_neck": fv["params"]}},
         "batch_stats": {"extractor": {
             "img_backbone": nv["batch_stats"]}}}), strict=True)
+    port.eval()
     with torch.inference_mode():
         ours = port.img_backbone(torch.from_numpy(x))
         outs = port.img_neck([ours[k] for k in feats])

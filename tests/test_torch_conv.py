@@ -46,7 +46,7 @@ def _module(v):
             s["BatchNorm_0"]["mean"])),
         "bn.running_var": torch.tensor(np.asarray(
             s["BatchNorm_0"]["var"]))})
-    return mod
+    return mod.eval()
 
 
 @pytest.mark.parametrize("shape", [(2, 12, 18, 24, 16), (1, 9, 7, 32, 40)])

@@ -26,8 +26,10 @@ from cmtcoop_tpu_torch.data.synthetic import (small_coop_batch,
                                               small_fusion_batch)
 from cmtcoop_tpu_torch.models.build import build_detector, random_init_
 from cmtcoop_tpu_torch.ops import pillars as pu
-from cmtcoop_tpu_torch.ops.attention import (NEG_INF, flash_attention_packed,
-                                             flash_attention_packed_reference)
+from cmtcoop_tpu_torch.ops.attention import (
+    NEG_INF, flash_attention_bwd, flash_attention_bwd_reference,
+    flash_attention_kvmask, flash_attention_kvmask_reference,
+    flash_attention_packed, flash_attention_packed_reference)
 from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                            conv3x3_bn_relu_reference,
                                            osa_aggregate,
@@ -142,6 +144,34 @@ def test_cpu_tensors_take_the_plain_versions():
     assert _build.launch_counts == before
 
 
+def test_train_attention_wrappers_on_cpu_and_other_devices():
+    """Kernels 7 and 8 take their plain versions for CPU tensors (no launch)
+    and refuse a device without a kernel."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, n, 8, generator=g) for n in (5, 7, 7))
+    before = dict(_build.launch_counts)
+    out, m, l = flash_attention_kvmask(q, k, v, None, True, 0.1, 3)
+    ref = flash_attention_kvmask_reference(q, k, v, torch.zeros(1, 7), True,
+                                           0.1, 3)
+    for a, b in zip((out, m, l), ref):
+        torch.testing.assert_close(a, b)
+    grads = flash_attention_bwd(q, k, v, torch.zeros(1, 7), out, m, l,
+                                torch.ones_like(out), 0.1, 3)
+    assert [tuple(t.shape) for t in grads] == [(1, 2, 5, 8), (1, 2, 7, 8),
+                                              (1, 2, 7, 8), (1, 7)]
+    no_kb = flash_attention_bwd(q, k, v, torch.zeros(1, 7), out, m, l,
+                                torch.ones_like(out), 0.1, 3, False)
+    assert no_kb[3] is None
+    for a, b in zip(no_kb[:3], grads):
+        torch.testing.assert_close(a, b)
+    assert _build.launch_counts == before
+    meta = torch.zeros(1, 2, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_kvmask(meta, meta, meta, None)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_bwd(meta, meta, meta, None, meta, None, None, meta)
+
+
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     a = _build.library_path()
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so"
@@ -150,7 +180,7 @@ def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     assert _build.library_path() != a
     assert {p.name for p in _build.sources()} >= {
         "pillar_conv.cu", "flash_attention.cu", "conv3x3.cu", "osa_agg.cu",
-        "common.cuh"}
+        "flash_train.cu", "common.cuh"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -200,6 +230,39 @@ def test_profile_summary_reads_one_trace():
         {"sort": 0.035, "attn": 0.02, "copy": 0.01})
     with pytest.raises(ValueError, match="frame spans"):
         profile_path.summarize(trace, 3)
+
+
+def test_profile_summary_train_stages():
+    """The train trace's stages: device time charged to the innermost
+    span (a forward stage inside `forward`), host span per stage, and
+    kernels 7 and 8 picked out by name."""
+    def ev(cat, name, ts, dur, corr=None):
+        return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
+                    args={} if corr is None else {"correlation": corr})
+    trace = {"traceEvents": [
+        ev("user_annotation", "frame", 0, 1000),
+        ev("user_annotation", "forward", 0, 400),
+        ev("user_annotation", "decoder", 100, 200),
+        ev("user_annotation", "loss + Hungarian", 400, 100),
+        ev("user_annotation", "backward", 500, 400),
+        ev("cuda_runtime", "cudaLaunchKernel", 50, 1, corr=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 150, 1, corr=2),
+        ev("cuda_runtime", "cudaLaunchKernel", 600, 1, corr=3),
+        ev("kernel", "conv", 60, 30, corr=1),
+        ev("kernel", "flash_train_fwd_kernel<bf16>", 160, 100, corr=2),
+        ev("kernel", "flash_train_bwd_dkv_kernel<bf16>", 610, 300, corr=3),
+    ]}
+    got = profile_path.summarize(
+        trace, 1, profile_path.STAGES + profile_path.TRAIN_STAGES)
+    assert got["stage_device_ms"] == pytest.approx(
+        {"forward": 0.03, "decoder": 0.1, "backward": 0.3})
+    assert got["stage_host_ms"] == pytest.approx(
+        {"forward": 0.4, "decoder": 0.2, "loss + Hungarian": 0.1,
+         "backward": 0.4})
+    assert got["train_kernels_ms"] == pytest.approx(
+        {"flash_train_fwd_kernel<bf16>": 0.1,
+         "flash_train_bwd_dkv_kernel<bf16>": 0.3})
+    assert got["idle_share"] == pytest.approx(0.57)
 
 
 def test_profile_spans_leave_the_model_unchanged():
@@ -403,6 +466,50 @@ def test_osa_aggregate_kernel_matches_plain(dtype, tol, v, h, w, chans,
     assert agg.dtype == dtype and gap.dtype == torch.float32
     _assert_rel(agg, ref_agg, tol)
     _assert_rel(gap, ref_gap, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,dh,nq,nk", [(1, 8, 32, 300, 1000),
+                                          (2, 2, 32, 70, 63),
+                                          (1, 1, 8, 5, 130),
+                                          (1, 3, 8, 64, 64)])
+def test_train_attention_kernels_match_plain(dtype, tol, rate, b, h, dh, nq,
+                                             nk):
+    """Kernels 7 and 8 on (B, H, N, Dh) views of packed (B, N, H*Dh)
+    projections, ragged query and key edges, NEG_INF keys in the last
+    batch row, q scaled so the softmax peaks; the dropout mask is the plain
+    version's exactly, so with dropout the outputs still agree to the
+    tolerance. The backward is given the kernel forward's (out, m, l);
+    without d(k_bias) it writes the same dq, dk, dv."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(b, n, h * dh, generator=g, device=dev).mul(
+        s).to(dtype).view(b, n, h, dh).transpose(1, 2)
+        for n, s in ((nq, 4.0), (nk, 1.0), (nk, 1.0)))
+    kb = torch.zeros(b, nk, device=dev)
+    kb[-1, nk // 2:] = NEG_INF
+    before = dict(_build.launch_counts)
+    out, m, l = flash_attention_kvmask(q, k, v, kb, True, rate, 11)
+    ref = flash_attention_kvmask_reference(q, k, v, kb, True, rate, 11)
+    for got, want in zip((out, m, l), ref):
+        _assert_rel(got, want, tol)
+    dout = torch.randn(b, h, nq, dh, generator=g, device=dev).to(dtype)
+    got = flash_attention_bwd(q, k, v, kb, out, m, l, dout, rate, 11)
+    want = flash_attention_bwd_reference(q, k, v, kb, out, m, l, dout, rate,
+                                         11)
+    for a, r in zip(got, want):
+        _assert_rel(a, r, tol)
+    no_kb = flash_attention_bwd(q, k, v, kb, out, m, l, dout, rate, 11,
+                                False)
+    assert no_kb[3] is None
+    for a, r in zip(no_kb[:3], got):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    assert _build.launch_counts["flash_train_fwd"] == \
+        before["flash_train_fwd"] + 1
+    for name in ("flash_train_bwd_dq", "flash_train_bwd_dkv"):
+        assert _build.launch_counts[name] == before[name] + 2
 
 
 def _on_card_matches_cpu(model_fn, batch, kernels):
