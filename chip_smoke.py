@@ -16,17 +16,27 @@ Phases, each raising on failure (the script then exits non-zero):
      and float32, with error, tolerance and time, beside the least time the
      card could take for the same work (bytes over 3.35 TB/s or bf16
      operations over 989 TFLOP/s, H100 SXM) and one PyTorch library call
-     that computes the same function, where there is one;
+     that computes the same function, where there is one; the sorted lookup
+     (kernel 9) at the vehicle cloud's gather stage-0 submanifold map (its
+     voxel ids as keys, 27 tap columns as queries) and its level-0 pillar
+     map (9 taps), and the row copy (kernel 10) at (40960, 768) in bfloat16
+     and float32, both bit-equal to their plain versions;
   4. the eval main paths, each through `build_detector` at full width in
      bfloat16 with seeded random weights, on the benchmark batch (two
-     65536-point ray-cast clouds, seed 0): `cmt_lidar_coop_tumtraf`, then
+     65536-point ray-cast clouds, seed 0): `cmt_lidar_coop_tumtraf`, the
+     same with the gather sparse encoder (main_path.py `GATHER_PATH`), then
      the flagship `cmt_fusion_coop_tumtraf` (plus 1 vehicle and 3
      infrastructure cameras at 640x1600). Per path: zero pillar and voxel
-     cap drops at every level, warm-up plus 3 timed frames of forward and
-     top-300 decode, finite BEV maps (and CPFPN outputs) and decoder
-     outputs, the launch count of every kernel of the path above zero and
-     of every other kernel zero; on the fusion path memories of 36400
-     (vehicle) and 44400 (infrastructure) tokens;
+     cap drops at every level (on the gather path zero voxel drops and no
+     downsample with more output sites than its stage cap), warm-up plus 3
+     timed frames of forward and top-300 decode, finite BEV maps (and CPFPN
+     outputs) and decoder outputs, the launch count of every kernel of the
+     path above zero and of every other kernel zero; on the fusion path
+     memories of 36400 (vehicle) and 44400 (infrastructure) tokens. Between
+     the gather and the fusion paths, a float32 check at full width: the
+     gather encoder against the pillar encoder on the same weights and the
+     vehicle cloud (they compute the same function), max |gather - pillar|
+     / max |pillar| of the BEV maps within GATHER_TOL;
   5. the train path: the full-width `cmt_fusion_coop_tumtraf` train step
      (main_path.py `build_train_path`: DN with 128 GT slots, dropout 0.1,
      grid mask, Hungarian loss, backward, clipped AdamW, bfloat16), a
@@ -35,9 +45,10 @@ Phases, each raising on failure (the script then exits non-zero):
      and SECOND's and the pillar encoder's moved, every parameter moved,
      zero cap drops, peak memory, kernels 7 and 8 launched and kernels 1 to
      6 not;
-  6. slice parity: the small LiDAR and fusion detectors of the CPU parity
-     tests (cmtcoop_tpu_torch/configs/presets.py `SMALL_COOP_*`,
-     `SMALL_FUSION_*`), the GPU forward (kernels, float32) against the CPU
+  6. slice parity: the small LiDAR (pillar and gather encoders) and fusion
+     detectors of the CPU parity tests (cmtcoop_tpu_torch/configs/presets.py
+     `SMALL_COOP_*`, `SMALL_GATHER_EXTRACTOR`, `SMALL_FUSION_*`), the GPU
+     forward (kernels, float32) against the CPU
      forward (plain versions) on the same weights and inputs; and one train
      step of the small fusion detector (dropout 0), GPU (kernels 7 and 8)
      against CPU, its loss dict and every gradient.
@@ -67,6 +78,9 @@ N_FRAMES = 3
 # plain versions round one more intermediate, so a few output ulps
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SLICE_TOL = 1e-3  # float32 GPU vs CPU over the whole small detector
+# float32 gather vs pillar encoder at full width, of max |pillar BEV|: the
+# same products summed in another order through 21 convs
+GATHER_TOL = 1e-3
 # the small train step, float32, GPU vs CPU: each loss term to TRAIN_TOL
 # relative, each gradient to TRAIN_TOL of its max |CPU grad| + 1e-6 (the
 # gather convs' scatter-add backward sums in another order on the card)
@@ -94,6 +108,10 @@ SOURCES = {
                            "cmtcoop_tpu/ops/attention.py:309"),
     "flash_train_bwd_dkv": ("cmtcoop_tpu_torch/csrc/flash_train.cu",
                             "cmtcoop_tpu/ops/attention.py:354"),
+    "sorted_lookup": ("cmtcoop_tpu_torch/csrc/sorted_lookup.cu",
+                      "cmtcoop_tpu/ops/lookup_kernel.py:32"),
+    "rows_copy": ("cmtcoop_tpu_torch/csrc/rows_copy.cu",
+                  "cmtcoop_tpu/ops/pillar_fused.py:59"),
 }
 
 
@@ -102,8 +120,12 @@ def log(msg):
 
 
 def cuda_ms(fn, warmup=2, iters=5):
+    """Device ms per call of `fn`: CUDA events around `iters` calls queued
+    behind a ~20 ms spin of the device, so that a call shorter than its
+    host-side launch cost is timed on the device, not on the host."""
     for _ in range(warmup):
         fn()
+    torch.cuda._sleep(40_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -455,6 +477,88 @@ def train_kernel_phases(results, dev):
         torch.cuda.empty_cache()
 
 
+def compare_exact(name, note, kernel, plain, args, results, library):
+    """A kernel whose outputs must be bit-equal to its plain version's on
+    `args`; records the first case's kernel, plain and library times
+    (`library()` gives the timed call) and its bound (bytes: its inputs
+    read once, its outputs written once)."""
+    got = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.dtype != r.dtype or not torch.equal(g, r):
+            raise AssertionError(f"{name} {note}: output {i} differs from "
+                                 "the plain version")
+    k_ms = cuda_ms(lambda: kernel(*args))
+    p_ms = cuda_ms(lambda: plain(*args))
+    log(f"kernel {name} [{note}]: bit-equal to the plain version, kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    rec = results.setdefault(name, dict(max_abs_err=0.0))
+    if "ms" in rec:
+        return
+    rec.update(ms=k_ms, plain_ms=p_ms, library_ms=cuda_ms(library()))
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(*args) + nbytes(*got),
+                                             0.0)
+    log(f"kernel {name} [{note}]: bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), library {rec['library_ms']:.4f} ms")
+
+
+def captured_lookup(module, fn, *args):
+    """(keys, queries) of the first `sorted_lookup` that `fn(*args)` makes
+    through `module`: the kernel's inputs exactly as the path gives them."""
+    seen = []
+    orig = module.sorted_lookup
+
+    def recording(keys, queries, run=1):
+        seen.append((keys, queries))
+        return orig(keys, queries, run)
+
+    module.sorted_lookup = recording
+    try:
+        fn(*args)
+    finally:
+        module.sorted_lookup = orig
+    return seen[0]
+
+
+def exact_kernel_phases(ext, batch, level0, results):
+    """Kernel 9 at the vehicle cloud's gather stage-0 submanifold map and
+    its level-0 pillar map, kernel 10 at the packed rows of the JAX
+    fallback branch, (40960, 768), in bfloat16 and float32."""
+    from cmtcoop_tpu_torch.ops import lookup_kernel as lk
+    from cmtcoop_tpu_torch.ops import pillars as pu
+    from cmtcoop_tpu_torch.ops import sparse_utils as su
+    from cmtcoop_tpu_torch.ops.pillar_fused import (pin_rows,
+                                                    pin_rows_reference)
+    vox = ext.voxelize(batch["vehicle_points"][0],
+                       batch["vehicle_points_mask"][0])
+    grid = su.SparseGrid(vox.coords, vox.mask,
+                         ext.pts_middle_encoder.sparse_shape)
+    for note, keys, q in (
+            ("gather stage-0 subm map, {0} keys, 27 x {0} queries",
+             *captured_lookup(su, su.subm_neighbor_map, grid)),
+            ("level-0 pillar map, {0} keys, 9 x {0} queries",
+             *captured_lookup(pu, pu.pillar_neighbor_map, level0["grid"]))):
+        # the library call: the plain version's one torch.searchsorted, on
+        # its int64 keys and (n, 2) targets q + d
+        keys64, q64 = keys.long(), q.long()[:, None]
+        targets = torch.where(q64 == lk.INT32_MAX, q64,
+                              q64 + torch.arange(2, device=q.device))
+        compare_exact("sorted_lookup", note.format(keys.shape[0]),
+                      lk.sorted_lookup, lk.sorted_lookup_reference, (keys, q),
+                      results,
+                      lambda: lambda: torch.searchsorted(keys64, targets))
+    gen = torch.Generator(device=keys.device).manual_seed(SEED + 2)
+    x = torch.randn(40960, 768, generator=gen, device=keys.device)
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        compare_exact("rows_copy", f"(40960, 768) {str(dt).split('.')[-1]}",
+                      pin_rows, pin_rows_reference, (xd,), results,
+                      lambda: xd.clone)
+
+
 def telemetry(model, batch):
     """bench.py's cap telemetry for both agents' clouds: raises unless
     there are zero pillar and voxel drops at every level. Returns the
@@ -477,6 +581,46 @@ def telemetry(model, batch):
             if n > c:
                 raise AssertionError(f"{agent} level occupancy {n} > {c}")
     return levels["vehicle_"]
+
+
+def gather_telemetry(model, batch):
+    """The gather path's cap telemetry for both agents' clouds: raises
+    unless no voxel is dropped and no downsample has more output sites than
+    its stage cap."""
+    from cmtcoop_tpu_torch.main_path import sparse_telemetry
+    for agent in ("vehicle_", "infrastructure_"):
+        t = sparse_telemetry(getattr(model, agent + "model"),
+                             batch[agent + "points"][0],
+                             batch[agent + "points_mask"][0])
+        sites = " ".join(f"D{i + 1}={n}/{c}"
+                         for i, (n, c) in enumerate(t["sites"]))
+        log(f"cloud {agent} (gather): {t['n_voxels_raw']} voxels "
+            f"({t['n_voxels_dropped']} dropped), output sites {sites}")
+        if t["n_voxels_dropped"] or any(n > c for n, c in t["sites"]):
+            raise AssertionError(f"{agent} cloud overflows a gather cap")
+
+
+def gather_vs_pillar(gather, pillar, batch):
+    """The float32 check at full width: the vehicle cloud through the
+    gather encoder and through the pillar encoder, on the same weights."""
+    ge, pe = gather.vehicle_model, pillar.vehicle_model
+    ws, wp = (e.pts_middle_encoder.state_dict() for e in (ge, pe))
+    if ws.keys() != wp.keys() or not all(torch.equal(ws[k], wp[k])
+                                         for k in ws):
+        raise AssertionError("gather and pillar encoders differ in weights")
+    pts, m = batch["vehicle_points"][0], batch["vehicle_points_mask"][0]
+    with torch.inference_mode():
+        feats, vox = ge.voxel_features(pts, m)
+        g = ge.pts_middle_encoder(feats, vox.coords, vox.mask,
+                                  dtype=torch.float32)
+        p = pe.pts_middle_encoder(*pe.pillarize(pts, m), dtype=torch.float32)
+    peak = float(p.abs().max())
+    err = float((g - p).abs().max()) / max(peak, 1e-30)
+    log(f"gather vs pillar encoder (float32, full width, vehicle cloud): "
+        f"BEV {tuple(g.shape)}, max |gather - pillar| / max |pillar| = "
+        f"{err:.3e} (max |pillar| {peak:.3e}, tol {GATHER_TOL:g})")
+    if g.shape != p.shape or not err <= GATHER_TOL:
+        raise AssertionError("the gather and pillar encoders disagree")
 
 
 def run_path(preset, model, batch):
@@ -723,7 +867,7 @@ def main():
     from cmtcoop_tpu_torch.configs.presets import (
         SMALL_COOP_EXTRACTOR, SMALL_COOP_HEAD, SMALL_COOP_PRESET,
         SMALL_FUSION_EXTRACTOR, SMALL_FUSION_HEAD, SMALL_FUSION_PRESET,
-        tiny_preset)
+        SMALL_GATHER_EXTRACTOR, tiny_preset)
     from cmtcoop_tpu_torch.data.synthetic import (small_coop_batch,
                                                   small_fusion_batch)
     from cmtcoop_tpu_torch.models.build import build_detector
@@ -757,11 +901,19 @@ def main():
     results = {}
     with torch.inference_mode():
         kernel_phases(levels, results, dev)
+        exact_kernel_phases(model.vehicle_model, batch, levels[0], results)
     train_kernel_phases(results, dev)
 
-    # 4. the main paths, one model on the card at a time
+    # 4. the main paths, one or two models on the card at a time
     launches = {main_path.PRESET: run_path(main_path.PRESET, model, batch)}
-    del model, batch, levels
+    del levels
+    path = main_path.GATHER_PATH
+    gather, gather_batch = main_path.build_main_path(dev, path)
+    with torch.inference_mode():
+        gather_telemetry(gather, gather_batch)
+    launches[path] = run_path(path, gather, gather_batch)
+    gather_vs_pillar(gather, model, batch)
+    del model, batch, gather, gather_batch
     torch.cuda.empty_cache()
     preset = main_path.FUSION_PRESET
     model, batch = main_path.build_main_path(dev, preset)
@@ -782,6 +934,12 @@ def main():
                                 head_kwargs=SMALL_COOP_HEAD),
                  small_coop_batch(), main_path.PATH_KERNELS[main_path.PRESET],
                  dev)
+    slice_parity("small gather coop detector",
+                 build_detector(tiny_preset(**SMALL_COOP_PRESET),
+                                extractor_kwargs=SMALL_GATHER_EXTRACTOR,
+                                head_kwargs=SMALL_COOP_HEAD),
+                 small_coop_batch(),
+                 main_path.PATH_KERNELS[main_path.GATHER_PATH], dev)
     slice_parity("small fusion coop detector",
                  build_detector(tiny_preset(**SMALL_FUSION_PRESET),
                                 extractor_kwargs=SMALL_FUSION_EXTRACTOR,

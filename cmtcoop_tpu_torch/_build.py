@@ -25,14 +25,16 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel name -> launches since the last reset (kernels 1 to 8 of the port;
+# kernel name -> launches since the last reset (kernels 1 to 10 of the port;
 # kernel 8 is two launches, counted apart)
 KERNELS = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
            "conv3x3_bn_relu", "conv3x3_bn_relu_resid", "osa_aggregate",
-           "flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv")
+           "flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv",
+           "sorted_lookup", "rows_copy")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _PILLAR_ARGS = [_I] + [_P] * 9 + [_I] * 10 + [_P]
 _SIGNATURES = {
     "cmt_pillar_conv_kb9": _PILLAR_ARGS,
@@ -46,6 +48,8 @@ _SIGNATURES = {
     "cmt_flash_train_fwd": [_P, _P],
     "cmt_flash_train_bwd_dq": [_P, _P],
     "cmt_flash_train_bwd_dkv": [_P, _P],
+    "cmt_sorted_lookup": [_P, _I, _P, _I, _I, _P, _P, _P],
+    "cmt_rows_copy": [_P, _P, _L, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

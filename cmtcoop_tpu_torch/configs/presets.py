@@ -156,6 +156,10 @@ SMALL_COOP_EXTRACTOR = dict(sparse_base_channels=8,
                             sparse_out_channels=16, pillar_caps=(128, 128),
                             fpn_channels=(16, 16))
 SMALL_COOP_HEAD = dict(downsample_scale=2)
+# the same detector with the gather sparse encoder (`encoder_impl="gather"`,
+# active sets capped at 128 after each downsample, as the tiny preset's)
+SMALL_GATHER_EXTRACTOR = dict(SMALL_COOP_EXTRACTOR, encoder_impl="gather",
+                              sparse_stage_caps=(128, 128))
 
 # The small cooperative fusion detector: the same LiDAR branch, plus a
 # V-19-slim-eSE backbone and a CPFPN of 32 channels (= hidden_dim, as the

@@ -124,17 +124,17 @@ def _agent(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
         _lidar(out, pre, p, s)
 
 
-def _lidar(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
-    ep, es = p["pts_middle_encoder"], s["pts_middle_encoder"]
-    mp = pre + "pts_middle_encoder"
-    out.put(f"{mp}.conv_input.0.weight", _sparse(ep["conv_input"]["conv"]
-                                                ["kernel"]))
-    out.bn(f"{mp}.conv_input.1", ep["conv_input"]["bn"],
+def _encoder(out: _Out, mp: str, ep: Mapping, es: Mapping) -> None:
+    """The sparse encoder's tree (pillar and gather encoders share it) ->
+    keys under the prefix `mp` (ending in a dot, or empty)."""
+    out.put(f"{mp}conv_input.0.weight", _sparse(ep["conv_input"]["conv"]
+                                               ["kernel"]))
+    out.bn(f"{mp}conv_input.1", ep["conv_input"]["bn"],
            es["conv_input"]["bn"])
     blocks = _numbered(ep, r"stage(\d+)_block(\d+)")
     n_stages = max(i for i, _ in blocks) + 1
     for i in range(n_stages):
-        layer = f"{mp}.encoder_layers.encoder_layer{i + 1}"
+        layer = f"{mp}encoder_layers.encoder_layer{i + 1}"
         js = [j for ii, j in blocks if ii == i]
         for j in js:
             bp, bs = ep[f"stage{i}_block{j}"], es[f"stage{i}_block{j}"]
@@ -147,9 +147,14 @@ def _lidar(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
             out.put(f"{layer}.{len(js)}.0.weight", _sparse(dp["conv"]
                                                           ["kernel"]))
             out.bn(f"{layer}.{len(js)}.1", dp["bn"], ds["bn"])
-    out.put(f"{mp}.conv_out.0.weight", _sparse(ep["conv_out"]["conv"]
-                                              ["kernel"]))
-    out.bn(f"{mp}.conv_out.1", ep["conv_out"]["bn"], es["conv_out"]["bn"])
+    out.put(f"{mp}conv_out.0.weight", _sparse(ep["conv_out"]["conv"]
+                                             ["kernel"]))
+    out.bn(f"{mp}conv_out.1", ep["conv_out"]["bn"], es["conv_out"]["bn"])
+
+
+def _lidar(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
+    _encoder(out, pre + "pts_middle_encoder.", p["pts_middle_encoder"],
+             s["pts_middle_encoder"])
 
     bp, bs = p["pts_backbone"], s["pts_backbone"]
     for i, j in _numbered(bp, r"block(\d+)_conv(\d+)"):
@@ -221,10 +226,14 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     float32 CPU tensors, reference key layout (coop prefixes
     `vehicle_model.` / `infrastructure_model.`; single-agent extractor keys
     at the top level). A tree without `pts_bbox_head` gives the extractor's
-    keys alone."""
+    keys alone, the tree of a sparse encoder alone (`PillarSparseEncoder` or
+    `SparseEncoder`) the encoder's."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out = _Out()
+    if "conv_input" in params:
+        _encoder(out, "", params, stats)
+        return out.sd
     agents = [a for a in ("vehicle_model", "infrastructure_model")
               if a in params]
     if agents:

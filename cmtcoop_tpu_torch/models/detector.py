@@ -21,19 +21,24 @@ from cmtcoop_tpu_torch.models.cmt_head import AgentInputs, CmtHead
 from cmtcoop_tpu_torch.models.grid_mask import grid_mask, grid_mask_draws
 from cmtcoop_tpu_torch.models.pillar_encoder import PillarSparseEncoder
 from cmtcoop_tpu_torch.models.second import SECOND, SECONDFPN
+from cmtcoop_tpu_torch.models.sparse_encoder import SparseEncoder
 from cmtcoop_tpu_torch.models.vovnet import CPFPN, VoVNet
 from cmtcoop_tpu_torch.ops.pillars import pillarize
+from cmtcoop_tpu_torch.ops.voxelize import hard_simple_vfe, voxelize
 
 # FeatureExtractor settings that select nothing here: the JAX package's TPU
-# image-layout switch and the gather encoder's caps (that encoder is not
-# ported). Presets carry them, so they are accepted and have no effect.
-NOT_PORTED_KEYS = ("img_impl", "sparse_stage_caps")
+# image-layout switch. Presets carry it, so it is accepted and has no effect.
+NOT_PORTED_KEYS = ("img_impl",)
 
 
 class FeatureExtractor(nn.Module):
     """Per-agent feature extractor. LiDAR (`use_lidar`): pillarize ->
-    PillarSparseEncoder -> SECOND -> SECONDFPN, giving the (B, H/8, W/8, 512)
-    BEV map (state `pts_middle_encoder.*`, `pts_backbone.*`, `pts_neck.*`).
+    PillarSparseEncoder (`encoder_impl="pillar"`), or voxelize ->
+    HardSimpleVFE -> the gather SparseEncoder (`"gather"`, the reference's
+    semantics, active sets capped at `sparse_stage_caps`), then SECOND ->
+    SECONDFPN, giving the (B, H/8, W/8, 512) BEV map (state
+    `pts_middle_encoder.*`, the same keys for both encoders, `pts_backbone.*`,
+    `pts_neck.*`).
     Camera (`use_camera`): VoVNet -> CPFPN, level 0 (stride 16) per view
     (state `img_backbone.*`, `img_neck.*`)."""
 
@@ -47,6 +52,8 @@ class FeatureExtractor(nn.Module):
                  sparse_channels: Sequence[Sequence[int]] = (
                      (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)),
                  sparse_out_channels: int = 128,
+                 sparse_stage_caps: Sequence[int] = (60000, 60000, 60000,
+                                                     60000),
                  encoder_impl: str = "pillar",
                  pillar_caps: Sequence[int] = (38400, 40960, 24064, 11264),
                  second_channels: Sequence[int] = (128, 256),
@@ -77,9 +84,9 @@ class FeatureExtractor(nn.Module):
                  for k in self.img_out_features], neck_out_channels,
                 num_outs=2)
         if use_lidar:
-            if encoder_impl != "pillar":
-                raise NotImplementedError(
-                    "only the pillar encoder of the LiDAR branch is ported")
+            if encoder_impl not in ("pillar", "gather"):
+                raise ValueError(f"unknown encoder_impl {encoder_impl!r}")
+            self.encoder_impl = encoder_impl
             self.voxel_size = tuple(voxel_size)
             self.pc_range = tuple(pc_range)
             self.grid_size = tuple(grid_size)
@@ -87,9 +94,15 @@ class FeatureExtractor(nn.Module):
             self.max_voxels = max_voxels
             self.pillar_caps = tuple(pillar_caps)
             z = grid_size[2] + 1
-            self.pts_middle_encoder = PillarSparseEncoder(
-                5, (z, grid_size[1], grid_size[0]), sparse_base_channels,
-                sparse_channels, sparse_out_channels, pillar_caps)
+            shape = (z, grid_size[1], grid_size[0])
+            if encoder_impl == "pillar":
+                self.pts_middle_encoder = PillarSparseEncoder(
+                    5, shape, sparse_base_channels, sparse_channels,
+                    sparse_out_channels, pillar_caps)
+            else:
+                self.pts_middle_encoder = SparseEncoder(
+                    5, shape, sparse_base_channels, sparse_channels,
+                    sparse_out_channels, sparse_stage_caps)
             levels = len(sparse_channels)
             z_out = z
             for zp in (1, 1, 0)[:levels - 1]:
@@ -108,11 +121,32 @@ class FeatureExtractor(nn.Module):
                          max_pillars=self.pillar_caps[0],
                          return_stats=return_stats)
 
+    def voxelize(self, points, points_mask, return_stats: bool = False):
+        """One sample's cloud -> voxels, with this extractor's settings."""
+        return voxelize(points, points_mask, voxel_size=self.voxel_size,
+                        pc_range=self.pc_range, grid_size=self.grid_size,
+                        max_points=self.max_points_per_voxel,
+                        max_voxels=self.max_voxels, return_stats=return_stats)
+
+    def voxel_features(self, points, points_mask):
+        """One sample's cloud -> (voxel means (V, F), the voxels):
+        voxelize, then HardSimpleVFE."""
+        vox = self.voxelize(points, points_mask)
+        return hard_simple_vfe(vox), vox
+
+    def encode(self, points, points_mask) -> torch.Tensor:
+        """One sample's cloud -> its dense BEV map, through the encoder."""
+        if self.encoder_impl == "pillar":
+            return self.pts_middle_encoder(*self.pillarize(points,
+                                                           points_mask),
+                                           dtype=self.compute_dtype)
+        feats, vox = self.voxel_features(points, points_mask)
+        return self.pts_middle_encoder(feats, vox.coords, vox.mask,
+                                       dtype=self.compute_dtype)
+
     def extract_pts_feat(self, points, points_mask) -> torch.Tensor:
-        bev = torch.stack([
-            self.pts_middle_encoder(*self.pillarize(p, m),
-                                    dtype=self.compute_dtype)
-            for p, m in zip(points, points_mask)])
+        bev = torch.stack([self.encode(p, m)
+                           for p, m in zip(points, points_mask)])
         return self.pts_neck(self.pts_backbone(bev))
 
     def extract_img_feat(self, imgs, rngs=None) -> torch.Tensor:

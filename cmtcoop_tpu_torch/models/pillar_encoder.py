@@ -93,20 +93,20 @@ class SparseBasicBlock(nn.Module):
                                  bias=b2, occ_out=occ, residual=x, relu=True)
 
 
-class PillarSparseEncoder(nn.Module):
-    """Pillars of one sample -> dense BEV (H/8, W/8, C_out * Z_out)."""
+class EncoderWeights(nn.Module):
+    """The module tree of mmdet3d's SparseEncoder that both encoders share
+    (this pillar encoder and the gather `SparseEncoder` of
+    models/sparse_encoder.py), so one state_dict loads into either."""
 
     def __init__(self, in_channels: int = 5,
                  sparse_shape: Tuple[int, int, int] = (41, 1440, 1440),
                  base_channels: int = 16,
                  encoder_channels: Sequence[Sequence[int]] = (
                      (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)),
-                 output_channels: int = 128,
-                 pillar_caps: Sequence[int] = (38400, 40960, 24064, 11264)):
+                 output_channels: int = 128):
         super().__init__()
         self.sparse_shape = tuple(sparse_shape)
         self.encoder_channels = tuple(tuple(c) for c in encoder_channels)
-        self.pillar_caps = tuple(pillar_caps)
         self.conv_input = _conv_bn(in_channels, base_channels)
         self.encoder_layers = nn.Module()
         n_stages = len(self.encoder_channels)
@@ -122,6 +122,29 @@ class PillarSparseEncoder(nn.Module):
             cin = blocks[-1]
         self.conv_out = _conv_bn(cin, output_channels, (3, 1, 1))
 
+    def stages(self):
+        """Per stage, (its basic blocks, its down conv or None for the
+        last)."""
+        n_stages = len(self.encoder_channels)
+        for i in range(n_stages):
+            mods = list(getattr(self.encoder_layers, f"encoder_layer{i + 1}"))
+            yield mods, (mods.pop() if i != n_stages - 1 else None)
+
+
+class PillarSparseEncoder(EncoderWeights):
+    """Pillars of one sample -> dense BEV (H/8, W/8, C_out * Z_out)."""
+
+    def __init__(self, in_channels: int = 5,
+                 sparse_shape: Tuple[int, int, int] = (41, 1440, 1440),
+                 base_channels: int = 16,
+                 encoder_channels: Sequence[Sequence[int]] = (
+                     (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)),
+                 output_channels: int = 128,
+                 pillar_caps: Sequence[int] = (38400, 40960, 24064, 11264)):
+        super().__init__(in_channels, sparse_shape, base_channels,
+                         encoder_channels, output_channels)
+        self.pillar_caps = tuple(pillar_caps)
+
     def forward(self, pcoords, pmask, occ, feats, dtype=torch.float32):
         """One sample's pillars (from `pillarize`) -> (H', W', C*Z') in
         `dtype`, channels in torch's `view(N, C*D, H, W)` order."""
@@ -136,11 +159,7 @@ class PillarSparseEncoder(nn.Module):
             s, b = self.conv_input[1].fold()
             x = fused_pillar_conv(x, nbr, self.conv_input[0].kernel(),
                                   scale=s, bias=b, occ_out=occ, relu=True)
-        n_stages = len(self.encoder_channels)
-        for i in range(n_stages):
-            layer = getattr(self.encoder_layers, f"encoder_layer{i + 1}")
-            mods = list(layer)
-            down = mods.pop() if i != n_stages - 1 else None
+        for i, (mods, down) in enumerate(self.stages()):
             for blk in mods:
                 x = blk(x, nbr, occ)
             if down is None:

@@ -7,6 +7,11 @@ kernel 1 for 9 BEV taps (the submanifold convs and the strided down convs),
 kernel 2 for 1 BEV tap (`conv_out`). The JAX package's packed rows, band
 matrices, windows, retry ladder and XLA fallback have no counterpart: the
 neighbour map is gathered directly, which is exact at any density.
+
+`pin_rows` is kernel 10 (csrc/rows_copy.cu), the row-major identity copy of
+the JAX package's `_pin_rows_layout`. That copy pinned XLA's layout on the
+retry ladder's fallback branch, which the port does not have, so no path of
+the port calls it; it is held against its plain version, `clone()`.
 """
 from __future__ import annotations
 
@@ -147,3 +152,27 @@ def _fused_pillar_conv_cuda(feats, nbr, weights, *, kz, z_stride, z_pad,
         z_stride, z_pad, int(relu), stream), "cmt_" + name)
     _build.count(name)
     return (out, occ) if fold_occ else out
+
+
+def pin_rows_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 10: a row-major copy."""
+    return x.clone()
+
+
+def pin_rows(x: torch.Tensor) -> torch.Tensor:
+    """A new row-major copy of the contiguous (P, W) tensor `x`, of any
+    element type (kernel 10 on a CUDA tensor)."""
+    if x.device.type == "cpu":
+        return pin_rows_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"pin_rows: no kernel for {x.device}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("pin_rows: x must be a contiguous (P, W) tensor")
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.check(_build.lib().cmt_rows_copy(
+            x.data_ptr(), out.data_ptr(), x.shape[0],
+            x.shape[1] * x.element_size(), _build.stream_ptr(x.device)),
+            "cmt_rows_copy")
+        _build.count("rows_copy")
+    return out

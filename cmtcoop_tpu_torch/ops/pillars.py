@@ -3,11 +3,12 @@ cmtcoop_tpu/ops/pillars.py).
 
 A pillar grid is (coords (P, 2) int32 (y, x) sorted by y*W+x, mask (P,)),
 with padding rows (coords -1, mask false) at the end; features are
-(P, Z, C) and occupancy (P, Z) bool. Every lookup is a `torch.searchsorted`
-on the sorted linear ids, which is exact, so the JAX package's windowed
-lookups, overflow guards and fallbacks have no counterpart here. The integer
-maps equal the JAX package's exactly, padding rows included: a miss points
-at row P_in, the zero row the convolutions append.
+(P, Z, C) and occupancy (P, Z) bool. Every neighbour map is one
+`sorted_lookup` (ops/lookup_kernel.py; kernel 9 on the card) of its query
+cells in the sorted linear ids, which is exact, so the JAX package's
+windowed lookups, overflow guards and fallbacks have no counterpart here.
+The integer maps equal the JAX package's exactly, padding rows included: a
+miss points at row P_in, the zero row the convolutions append.
 
 Everything here is device-agnostic tensor code with static shapes and no
 host synchronisation.
@@ -18,7 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-INT32_MAX = 2 ** 31 - 1
+from cmtcoop_tpu_torch.ops.lookup_kernel import INT32_MAX, sorted_lookup
 
 
 class PillarGrid(NamedTuple):
@@ -34,14 +35,6 @@ class PillarGrid(NamedTuple):
         return torch.where(self.mask, lin, INT32_MAX).to(torch.int32)
 
 
-def _lookup(lin: torch.Tensor, q: torch.Tensor):
-    """(position, hit) of int32 queries `q` (any shape) in sorted `lin`."""
-    p = lin.shape[0]
-    pos = torch.searchsorted(lin, q.reshape(-1).contiguous()).reshape(q.shape)
-    pos_c = pos.clamp(max=p - 1)
-    return pos_c, (lin[pos_c] == q) & (pos < p)
-
-
 def _cell_map(lin: torch.Tensor, hw, cy: torch.Tensor, cx: torch.Tensor,
               valid: torch.Tensor, p_in: int) -> torch.Tensor:
     """Rows of sorted `lin` holding cells (cy, cx); out of bounds, invalid
@@ -49,8 +42,8 @@ def _cell_map(lin: torch.Tensor, hw, cy: torch.Tensor, cx: torch.Tensor,
     h, w = hw
     ok = valid & (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
     q = torch.where(ok, cy * w + cx, INT32_MAX).to(torch.int32)
-    pos, hit = _lookup(lin, q)
-    return torch.where(hit & ok, pos, p_in).to(torch.int32)
+    pos, hit = sorted_lookup(lin, q.reshape(-1))
+    return torch.where(hit, pos, p_in).to(torch.int32).view(q.shape)
 
 
 def pillar_neighbor_map(grid: PillarGrid, ky: int = 3,

@@ -2,11 +2,18 @@
 `torch.profiler` trace on the card:
 
     python -m cmtcoop_tpu_torch.profile_path [--preset NAME] [--out DIR]
+    python -m cmtcoop_tpu_torch.profile_path --preset cmt_lidar_coop_tumtraf \
+        --encoder gather [--out DIR]
     python -m cmtcoop_tpu_torch.profile_path --train [--out DIR]
 
 Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
 flagship `cmt_fusion_coop_tumtraf` by default), runs one frame to warm up,
-then traces 3 frames. With `--train` it builds the full-width train step
+then traces 3 frames. `--encoder gather` takes the LiDAR preset with the
+gather sparse encoder (main_path.py `GATHER_PATH`), whose stages add
+`voxelize` (voxelize + VFE), `sparse maps` (every neighbour map and active
+set of the encoder, kernel 9) and `sparse convs` (its gather convs and the
+densify); its `pillar encoder` span keeps what these leave. With `--train`
+it builds the full-width train step
 (main_path.py `build_train_path`), runs one step to warm up and traces one
 step: the frame is then the step, and the stages add `forward` (what no
 finer forward stage holds), `loss + Hungarian`, `backward` (the checkpoint
@@ -60,6 +67,10 @@ HEAD_STAGES = {"head memory": ("build_memory",),
                "rv pe": ("_rv_pe", "_rv_query_embed"),
                "decoder": ("run_decoder",), "task heads": ("run_task_heads",)}
 STAGES = tuple(AGENT_STAGES) + tuple(HEAD_STAGES)
+# the gather encoder's own spans (models/sparse_encoder.py), per agent
+GATHER_STAGES = {"voxelize": ("", "voxel_features"),
+                 "sparse maps": ("pts_middle_encoder", "maps"),
+                 "sparse convs": ("pts_middle_encoder", "convs")}
 # the train step's own spans (train/train_step.py `make_train_step`)
 TRAIN_STAGES = ("forward", "loss + Hungarian", "backward", "optimizer")
 N_FRAMES = 3
@@ -77,9 +88,9 @@ def instrument(model) -> None:
     instance attributes change; what the model computes does not."""
     for agent in model.agents:
         ext = getattr(model, f"{agent}_model")
-        for name, (sub, method) in AGENT_STAGES.items():
+        for name, (sub, method) in {**AGENT_STAGES, **GATHER_STAGES}.items():
             obj = getattr(ext, sub, None) if sub else ext
-            if obj is not None:
+            if obj is not None and hasattr(obj, method):
                 setattr(obj, method, _spanned(name, getattr(obj, method)))
     head = model.pts_bbox_head
     for name, methods in HEAD_STAGES.items():
@@ -160,11 +171,20 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--preset", default=main_path.FUSION_PRESET,
                         choices=main_path.PATHS)
+    parser.add_argument("--encoder", default="pillar",
+                        choices=("pillar", "gather"),
+                        help="the LiDAR preset's sparse encoder")
     parser.add_argument("--train", action="store_true",
                         help="trace one full-width train step instead")
     parser.add_argument("--out", default=str(
         Path(__file__).resolve().parents[1] / "build" / "profile"))
     args = parser.parse_args(argv)
+    path = args.preset
+    if args.encoder == "gather":
+        if args.preset != main_path.PRESET or args.train:
+            parser.error(f"--encoder gather takes --preset "
+                         f"{main_path.PRESET} and no --train")
+        path = main_path.GATHER_PATH
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: needs a CUDA device")
     dev = torch.device("cuda")
@@ -187,9 +207,9 @@ def main(argv=None) -> dict:
                 step(batch)
                 torch.cuda.synchronize()
     else:
-        model, batch = main_path.build_main_path(dev, args.preset)
+        model, batch = main_path.build_main_path(dev, path)
         instrument(model)
-        n, stage_names = N_FRAMES, STAGES
+        n, stage_names = N_FRAMES, STAGES + tuple(GATHER_STAGES)
         with torch.inference_mode():
             main_path.frame(model, batch)  # warm-up: the build, launches
             t0 = time.perf_counter()
@@ -205,7 +225,7 @@ def main(argv=None) -> dict:
     trace_path = out / "trace.json"
     prof.export_chrome_trace(str(trace_path))
     summary = summarize(json.loads(trace_path.read_text()), n, stage_names)
-    summary["preset"] = main_path.TRAIN_PATH if args.train else args.preset
+    summary["preset"] = main_path.TRAIN_PATH if args.train else path
     summary["untraced_frame_ms"] = untraced_ms
     if args.train:
         summary["traced_peak_memory_gib"] = (

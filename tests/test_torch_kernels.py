@@ -19,6 +19,7 @@ from cmtcoop_tpu_torch.configs.presets import (SMALL_COOP_EXTRACTOR,
                                                SMALL_COOP_HEAD,
                                                SMALL_COOP_PRESET,
                                                SMALL_FUSION_EXTRACTOR,
+                                               SMALL_GATHER_EXTRACTOR,
                                                SMALL_FUSION_HEAD,
                                                SMALL_FUSION_PRESET,
                                                tiny_preset)
@@ -34,8 +35,11 @@ from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                            conv3x3_bn_relu_reference,
                                            osa_aggregate,
                                            osa_aggregate_reference)
+from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, sorted_lookup,
+                                                 sorted_lookup_reference)
 from cmtcoop_tpu_torch.ops.pillar_fused import (fused_pillar_conv,
-                                                fused_pillar_conv_reference)
+                                                fused_pillar_conv_reference,
+                                                pin_rows, pin_rows_reference)
 
 # the small cooperative detector of the slice tests (16x16 BEV, 2 stages)
 SLICE_PRESET = tiny_preset(**SMALL_COOP_PRESET)
@@ -46,6 +50,12 @@ def slice_model(agents=("vehicle", "infrastructure")):
     return build_detector(SLICE_PRESET,
                           extractor_kwargs=SMALL_COOP_EXTRACTOR,
                           head_kwargs=SMALL_COOP_HEAD, agents=agents)
+
+
+def gather_slice_model():
+    return build_detector(SLICE_PRESET,
+                          extractor_kwargs=SMALL_GATHER_EXTRACTOR,
+                          head_kwargs=SMALL_COOP_HEAD)
 
 
 def fusion_slice_model():
@@ -180,7 +190,44 @@ def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     assert _build.library_path() != a
     assert {p.name for p in _build.sources()} >= {
         "pillar_conv.cu", "flash_attention.cu", "conv3x3.cu", "osa_agg.cu",
-        "flash_train.cu", "common.cuh"}
+        "flash_train.cu", "sorted_lookup.cu", "rows_copy.cu", "common.cuh"}
+
+
+def _lookup_case(g, n_keys, n_q, tail):
+    """Sorted distinct int32 keys with a sentinel tail; queries in random
+    order: keys and the values around them, sentinels in the middle."""
+    keys = torch.randperm(4 * n_keys + 8, generator=g)[:n_keys].sort().values
+    keys = torch.cat([keys, torch.full((tail,), INT32_MAX)]).int()
+    pool = torch.cat([keys, torch.arange(-2, 4 * n_keys + 10)]).int()
+    q = pool[torch.randint(0, len(pool), (n_q,), generator=g)]
+    q[torch.rand(n_q, generator=g) < 0.1] = INT32_MAX
+    return keys, q
+
+
+def test_lookup_and_pin_rows_wrappers_on_cpu_and_other_devices():
+    """Kernels 9 and 10 take their plain versions for CPU tensors (no
+    launch) and refuse a device without a kernel."""
+    g = torch.Generator().manual_seed(0)
+    keys, q = _lookup_case(g, 50, 300, 6)
+    before = dict(_build.launch_counts)
+    pos, hit = sorted_lookup(keys, q, run=2)
+    assert pos.shape == hit.shape == (300, 2)
+    kl = keys.tolist()
+    for j, qj in enumerate(q.tolist()):
+        for d in range(2):
+            t = qj if qj == INT32_MAX else qj + d
+            assert int(pos[j, d]) == sum(k < t for k in kl)
+            assert bool(hit[j, d]) == (qj != INT32_MAX and t in kl)
+    assert hit.any() and not hit.all()
+    x = torch.randn(7, 5)
+    y = pin_rows(x)
+    assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+    assert _build.launch_counts == before
+    meta = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sorted_lookup(meta, meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        pin_rows(torch.zeros(4, 4, device="meta"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -277,6 +324,26 @@ def test_profile_spans_leave_the_model_unchanged():
             got, _ = model(batch)
     names = {e.key for e in prof.key_averages()}
     assert set(profile_path.STAGES) <= names
+    for o, r in zip(got, ref):
+        for key in r:
+            torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
+
+
+def test_profile_gather_spans_leave_the_model_unchanged():
+    """The gather encoder's stages (voxelize, sparse maps, sparse convs)
+    get their spans, and the spans change nothing."""
+    model = gather_slice_model()
+    random_init_(model, torch.Generator().manual_seed(2))
+    batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
+    with torch.inference_mode():
+        ref, _ = model(batch)
+        profile_path.instrument(model)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got, _ = model(batch)
+    names = {e.key for e in prof.key_averages()}
+    assert set(profile_path.GATHER_STAGES) <= names
+    assert "pillarize" not in names
     for o, r in zip(got, ref):
         for key in r:
             torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
@@ -532,6 +599,45 @@ def _on_card_matches_cpu(model_fn, batch, kernels):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("run", [1, 3])
+@pytest.mark.parametrize("n_keys,n_q,tail", [(65536, 200000, 0),
+                                             (1000, 27 * 1000, 300),
+                                             (0, 17, 0), (5, 1, 3)])
+def test_sorted_lookup_kernel_matches_plain(run, n_keys, n_q, tail):
+    """Kernel 9 against `torch.searchsorted` (its plain version): bit-equal
+    pos and hit, queries unsorted with sentinels in the middle, an empty
+    key array and ragged grids included; one launch per call."""
+    dev = cuda_device()
+    keys, q = _lookup_case(torch.Generator().manual_seed(n_q), n_keys, n_q,
+                           tail)
+    keys, q = keys.to(dev), q.to(dev)
+    before = _build.launch_counts["sorted_lookup"]
+    got = sorted_lookup(keys, q, run=run)
+    ref = sorted_lookup_reference(keys, q, run=run)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["sorted_lookup"] == before + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (40960, 768)),
+                                         (torch.float32, (1000, 37)),
+                                         (torch.uint8, (513, 7)),
+                                         (torch.int64, (3, 2))])
+def test_rows_copy_kernel_matches_clone(dtype, shape):
+    """Kernel 10 against `clone()`: bit-equal, 16-, 4- and 1-byte words."""
+    dev = cuda_device()
+    x = torch.randint(0, 100, shape, device=dev).to(dtype)
+    before = _build.launch_counts["rows_copy"]
+    y = pin_rows(x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["rows_copy"] == before + 1
+    assert y.data_ptr() != x.data_ptr()
+    assert torch.equal(y, pin_rows_reference(x))
+
+
+@pytest.mark.cuda
 def test_slice_on_card_matches_cpu():
     """The small LiDAR detector with seeded weights: the card's forward
     (kernels 1 to 4, float32) against the CPU's (plain versions), rtol =
@@ -546,3 +652,11 @@ def test_fusion_slice_on_card_matches_cpu():
     the plain versions on the CPU, float32, rtol = atol = 1e-3."""
     _on_card_matches_cpu(fusion_slice_model, small_fusion_batch(),
                          main_path.PATH_KERNELS[main_path.FUSION_PRESET])
+
+
+@pytest.mark.cuda
+def test_gather_slice_on_card_matches_cpu():
+    """The small LiDAR detector with the gather encoder: kernels 3, 4 and 9
+    on the card against the plain versions on the CPU, float32."""
+    _on_card_matches_cpu(gather_slice_model, small_coop_batch(),
+                         main_path.PATH_KERNELS[main_path.GATHER_PATH])
