@@ -10,10 +10,14 @@ Phases, each raising on failure (the script then exits non-zero):
   2. the kernel build (nvcc, sm_90a) and its seconds;
   3. each hand-written kernel against its plain PyTorch version on the card,
      at the main paths' shapes (neighbour maps and occupancy from the
-     benchmark cloud; the VoVNet stage shapes of the camera branch; the
-     train step's cross-attention, 1540 queries x 44400 keys x 8 heads x 32
-     with a quarter of the keys at NEG_INF, dropout 0.1 and 0), in bfloat16
-     and float32, with error, tolerance and time, beside the least time the
+     benchmark cloud; kernel 4 at every shape the fusion path gives it, 20
+     VoVNet stage shapes and the head, on operands packed once as the
+     eval modules hold them, and its wrappers' host cost per launch; the
+     train step's
+     cross-attention, 1540 queries x 44400 keys x 8 heads x 32 with a
+     quarter of the keys at NEG_INF, dropout 0.1 and 0), in bfloat16 (and
+     float32 at one or two cases a kernel), with error, tolerance and time,
+     beside the least time the
      card could take for the same work (bytes over 3.35 TB/s or bf16
      operations over 989 TFLOP/s, H100 SXM) and one PyTorch library call
      that computes the same function, where there is one; the sorted lookup
@@ -32,7 +36,9 @@ Phases, each raising on failure (the script then exits non-zero):
      timed frames of forward and top-300 decode, finite BEV maps (and CPFPN
      outputs) and decoder outputs, the launch count of every kernel of the
      path above zero and of every other kernel zero; on the fusion path
-     memories of 36400 (vehicle) and 44400 (infrastructure) tokens. Between
+     memories of 36400 (vehicle) and 44400 (infrastructure) tokens, and
+     kernel 4's launches counted per shape, which weight phase 3's kernel,
+     cuDNN and bound times into sums per fusion frame. Between
      the gather and the fusion paths, a float32 check at full width: the
      gather encoder against the pillar encoder on the same weights and the
      vehicle cloud (they compute the same function), max |gather - pillar|
@@ -55,8 +61,9 @@ Phases, each raising on failure (the script then exits non-zero):
 
 Before the last line come a JSON object with one entry per kernel (its
 launches on each main path, its worst bfloat16 error, its first case's
-kernel, plain and library times and its bound) and the card's name and
-power limit from `nvidia-smi`; the last line is `{"ok": true, "device":
+kernel, plain and library times and its bound, and `cases`: those numbers
+for every bf16 case) and the card's name and power limit from
+`nvidia-smi`; the last line is `{"ok": true, "device":
 {...}}`. Without a CUDA device, or run outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -88,6 +95,20 @@ TRAIN_TOL = 2e-3
 # H100 SXM published peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 ATTN_Q, ATTN_K = 1540, 44400  # the train step's cross-attention (infra)
+# kernel 4's shapes on the fusion path, (views, H, W, Cin, Cout, where):
+# VoVNet-99's OSA 3x3 convs per stage (1 vehicle and 3 infrastructure views
+# at 640x1600) and the head's shared_conv. Phase 3 times each; phase 4
+# counts the launches at each in the fusion path's run, which must launch
+# at these shapes and no other, and weights the times by those counts
+CONV_PATH_SHAPES = [(1, 180, 180, 512, 256, "head")] + [
+    (v, h, w, cin, cout, f"stage {st}")
+    for v in (1, 3)
+    for st, h, w, cin, cout in (
+        (2, 160, 400, 128, 128), (3, 80, 200, 256, 160),
+        (3, 80, 200, 160, 160), (3, 80, 200, 512, 160),
+        (4, 40, 100, 512, 192), (4, 40, 100, 768, 192),
+        (4, 40, 100, 192, 192), (5, 20, 50, 768, 224),
+        (5, 20, 50, 1024, 224), (5, 20, 50, 224, 224))]
 
 SOURCES = {
     "pillar_conv_kb9": ("cmtcoop_tpu_torch/csrc/pillar_conv.cu",
@@ -136,6 +157,23 @@ def cuda_ms(fn, warmup=2, iters=5):
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters=20, repeats=7):
+    """Host us per call of `fn` (the wrapper's cost to launch): the median
+    over `repeats` blocks of `iters` calls, each block timed while the
+    device works through a ~50 ms spin, so no call waits on it."""
+    fn()
+    blocks = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        blocks.append((time.perf_counter() - t0) * 1e6 / iters)
+    torch.cuda.synchronize()
+    return sorted(blocks)[repeats // 2]
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -150,16 +188,19 @@ def bound(n_bytes, flops):
 
 
 def compare(name, shape_note, kernel, plain, make_inputs, results,
-            exact_side=True, library=None, work=None):
-    """Kernel vs plain version on the same inputs, in bfloat16 and float32;
+            exact_side=True, library=None, work=None,
+            dtypes=(torch.bfloat16, torch.float32), info=None):
+    """Kernel vs plain version on the same inputs, in each of `dtypes`;
     `make_inputs(dtype)` gives (args, kwargs). The first output is held to
     TOL of its max|plain|; side outputs are held equal (occupancy) or, with
-    `exact_side=False`, each to TOL of its own max|plain|. Records the bf16
-    numbers of the first output, and on the first bf16 case of a kernel
-    the time of the call `library(*args, **kw)` returns (one PyTorch call
-    computing the same function; None when there is none) and the bound
-    from `work(*args, **kw)` -> (bytes, flops)."""
-    for dtype in (torch.bfloat16, torch.float32):
+    `exact_side=False`, each to TOL of its own max|plain|. Each bf16 case
+    appends to the kernel's `cases` its numbers (those of the first output,
+    `info` merged in): kernel and plain ms, the time of the call
+    `library(*args, **kw)` returns (one PyTorch call computing the same
+    function; None when there is none) and the bound from `work(*args,
+    **kw)` -> (bytes, flops). The kernel's first case also gives its
+    top-level numbers."""
+    for dtype in dtypes:
         dname = str(dtype).split(".")[-1]
         args, kw = make_inputs(dtype)
         got = kernel(*args, **kw)
@@ -199,18 +240,25 @@ def compare(name, shape_note, kernel, plain, make_inputs, results,
             raise AssertionError(f"{name} {shape_note} {dname} disagrees")
         if dtype != torch.bfloat16:
             continue
-        rec = results.setdefault(name, dict(max_abs_err=0.0))
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if "ms" in rec:
-            continue
-        rec.update(ms=k_ms, plain_ms=p_ms, library_ms=None)
-        rec["bound_ms"], rec["bound_by"] = bound(*work(*args, **kw))
-        if library is not None:
-            rec["library_ms"] = cuda_ms(library(*args, **kw))
+        case = dict(note=shape_note, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                    library_ms=None if library is None
+                    else cuda_ms(library(*args, **kw)), **(info or {}))
+        case["bound_ms"], case["bound_by"] = bound(*work(*args, **kw))
+        record(results, name, case)
         log(f"kernel {name} [{shape_note}] bfloat16: bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
-            + ("none" if rec["library_ms"] is None
-               else f"{rec['library_ms']:.3f} ms"))
+            f"{case['bound_ms']:.4f} ms ({case['bound_by']}), library "
+            + ("none" if case["library_ms"] is None
+               else f"{case['library_ms']:.4f} ms"))
+
+
+def record(results, name, case):
+    """Adds one bf16 case to a kernel's record: the worst error over its
+    cases, the first case's times and bound at the top level."""
+    rec = results.setdefault(name, dict(max_abs_err=0.0, cases=[]))
+    rec["max_abs_err"] = max(rec["max_abs_err"], case["max_abs_err"])
+    rec["cases"].append(case)
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        rec.setdefault(k, case[k])
 
 
 def levels_of(batch, agent, ext):
@@ -271,13 +319,16 @@ def sdpa(q, k, v, k_bias, dropout_p=0.0):
 
 
 def kernel_phases(lv, results, dev):
+    from cmtcoop_tpu_torch.models.layers import ConvBNReLU
     from cmtcoop_tpu_torch.ops import pillars as pu
     from cmtcoop_tpu_torch.ops.attention import (
         NEG_INF, flash_attention_packed, flash_attention_packed_reference)
     from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
+                                               conv3x3_bn_relu_packed,
                                                conv3x3_bn_relu_reference,
                                                osa_aggregate,
-                                               osa_aggregate_reference)
+                                               osa_aggregate_reference,
+                                               pack_conv3x3_weight)
     from cmtcoop_tpu_torch.ops.pillar_fused import (
         fused_pillar_conv, fused_pillar_conv_reference)
 
@@ -339,19 +390,26 @@ def kernel_phases(lv, results, dev):
                 nbytes(q_, k_, v_, kb) + nbytes(q_),
                 4.0 * q_.shape[1] * k_.shape[1] * q_.shape[2]))
 
-    def conv_work(x, wt, s, b, residual=None):
-        n, h, w, cin = x.shape
-        cout = wt.shape[0]
-        return (nbytes(x, s, b, residual) + wt.numel() * x.element_size()
-                + n * h * w * cout * x.element_size(),
-                2.0 * n * h * w * cin * cout * 9)
+    # kernels 4 and 5 are timed as the main path calls them: on operands
+    # packed once (`conv3x3_bn_relu_packed`); the plain version takes the
+    # pack's source weight and folded BN
+    def conv_plain(x, packed, residual=None):
+        return conv3x3_bn_relu_reference(x, packed.source, packed.scale,
+                                         packed.bias, residual=residual)
 
-    def conv_library(x, wt, s, b, residual=None):
-        w = wt.to(x.dtype)
+    def conv_work(x, packed, residual=None):
+        n, h, w, cin = x.shape
+        return (nbytes(x, packed.scale, packed.bias, residual)
+                + packed.source.numel() * x.element_size()
+                + n * h * w * packed.cout * x.element_size(),
+                2.0 * n * h * w * cin * packed.cout * 9)
+
+    def conv_library(x, packed, residual=None):
+        w = packed.source.to(x.dtype)
         return lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w,
                                                   padding=1)
 
-    def conv_case(name, note, v, h, w, cin, cout, with_resid):
+    def conv_case(name, note, v, h, w, cin, cout, with_resid, fp32):
         x = randn(v, h, w, cin)
         wt = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
         s, b = 1.0 + 0.1 * randn(cout), 0.1 * randn(cout)
@@ -359,17 +417,39 @@ def kernel_phases(lv, results, dev):
 
         def inputs(dt):
             kw = {} if res is None else dict(residual=res.to(dt))
-            return (x.to(dt), wt, s, b), kw
+            return (x.to(dt), pack_conv3x3_weight(wt, s, b, dt)), kw
 
-        compare(name, note, conv3x3_bn_relu, conv3x3_bn_relu_reference,
-                inputs, results, library=conv_library, work=conv_work)
+        compare(name, note, conv3x3_bn_relu_packed, conv_plain, inputs,
+                results, library=conv_library, work=conv_work,
+                dtypes=((torch.bfloat16, torch.float32) if fp32
+                        else (torch.bfloat16,)),
+                info=dict(shape=[v, h, w, cin, cout]))
+        return x.to(torch.bfloat16), wt, s, b
 
-    conv_case("conv3x3_bn_relu", "head 180x180 512->256", 1, 180, 180, 512,
-              256, False)
-    conv_case("conv3x3_bn_relu", "VoVNet stage 3 V3 80x200 160->160", 3, 80,
-              200, 160, 160, False)
+    # kernel 4 at every shape of the fusion path (float32 too at the first
+    # two and at kernel 5's case)
+    for v, h, w, cin, cout, note in CONV_PATH_SHAPES:
+        last = conv_case("conv3x3_bn_relu",
+                         f"{note} V{v} {h}x{w} {cin}->{cout}", v, h, w, cin,
+                         cout, False,
+                         (v, h, w, cin) in ((1, 180, 180, 512),
+                                            (3, 80, 200, 160)))
     conv_case("conv3x3_bn_relu_resid", "V3 80x200 160->160 + residual", 3,
-              80, 200, 160, 160, True)
+              80, 200, 160, 160, True, True)
+    # the host cost per launch at the last shape (stage 5 V3): the wrapper
+    # on a held pack, an eval module (its pack's cache check included), and
+    # the wrapper that packs per call
+    x, wt, s, b = last
+    packed = pack_conv3x3_weight(wt, s, b, x.dtype)
+    module = ConvBNReLU(wt.shape[1], wt.shape[0]).to(dev).eval()
+    us = dict(packed=host_us(lambda: conv3x3_bn_relu_packed(x, packed)),
+              eval_module=host_us(lambda: module(x)),
+              packing_per_call=host_us(lambda: conv3x3_bn_relu(x, wt, s, b)))
+    results["conv3x3_bn_relu"]["host_us_per_launch"] = us
+    log(f"kernel conv3x3_bn_relu host us per launch ({tuple(x.shape)} -> "
+        f"{wt.shape[0]}): packed once {us['packed']:.1f}, eval module "
+        f"{us['eval_module']:.1f}, packing per call "
+        f"{us['packing_per_call']:.1f}")
 
     def agg_work(parts, wt, s, b):
         v, h, w = parts[0].shape[:3]
@@ -479,9 +559,9 @@ def train_kernel_phases(results, dev):
 
 def compare_exact(name, note, kernel, plain, args, results, library):
     """A kernel whose outputs must be bit-equal to its plain version's on
-    `args`; records the first case's kernel, plain and library times
-    (`library()` gives the timed call) and its bound (bytes: its inputs
-    read once, its outputs written once)."""
+    `args`; records the case's kernel, plain and library times (`library()`
+    gives the timed call) and its bound (bytes: its inputs read once, its
+    outputs written once)."""
     got = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -495,14 +575,13 @@ def compare_exact(name, note, kernel, plain, args, results, library):
     p_ms = cuda_ms(lambda: plain(*args))
     log(f"kernel {name} [{note}]: bit-equal to the plain version, kernel "
         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    rec = results.setdefault(name, dict(max_abs_err=0.0))
-    if "ms" in rec:
-        return
-    rec.update(ms=k_ms, plain_ms=p_ms, library_ms=cuda_ms(library()))
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes(*args) + nbytes(*got),
-                                             0.0)
-    log(f"kernel {name} [{note}]: bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), library {rec['library_ms']:.4f} ms")
+    case = dict(note=note, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                library_ms=cuda_ms(library()))
+    case["bound_ms"], case["bound_by"] = bound(nbytes(*args) + nbytes(*got),
+                                               0.0)
+    record(results, name, case)
+    log(f"kernel {name} [{note}]: bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), library {case['library_ms']:.4f} ms")
 
 
 def captured_lookup(module, fn, *args):
@@ -625,7 +704,8 @@ def gather_vs_pillar(gather, pillar, batch):
 
 def run_path(preset, model, batch):
     """Phase 4 on one main path: warm-up, N_FRAMES timed frames, the
-    checks of the module docstring. Returns the launch counts."""
+    checks of the module docstring. Returns the launch counts and the
+    launches per (kernel, shape) where a wrapper records its shape."""
     from cmtcoop_tpu_torch import _build, main_path
     head = model.pts_bbox_head
     finite, memory_len = [], []
@@ -663,6 +743,7 @@ def run_path(preset, model, batch):
             task_outs, dec = main_path.frame(model, batch)
             times.append((time.perf_counter() - t0) * 1e3)
         launches = dict(_build.launch_counts)
+        shapes = dict(_build.launch_shapes)
     for h in hooks:
         h.remove()
     del head.build_memory
@@ -698,7 +779,31 @@ def run_path(preset, model, batch):
         if (launches[name] > 0) != (name in path_kernels):
             raise AssertionError(f"{preset}: kernel {name} launched "
                                  f"{launches[name]} times")
-    return launches
+    return launches, shapes
+
+
+def conv_per_fusion_frame(results, shapes):
+    """Kernel 4 per fusion frame: phase 3's times at each shape weighted by
+    the launches the fusion path's timed frames made at it (`shapes`,
+    (kernel, shape) -> launches over N_FRAMES frames). Raises unless the
+    path launched at exactly the shapes phase 3 timed."""
+    cases = results["conv3x3_bn_relu"]["cases"]
+    launched = {shape: n for (name, shape), n in shapes.items()
+                if name == "conv3x3_bn_relu"}
+    timed = {tuple(c["shape"]) for c in cases}
+    if set(launched) != timed or any(n % N_FRAMES for n in launched.values()):
+        raise AssertionError(f"kernel 4's fusion-path shapes {launched} are "
+                             f"not the {len(timed)} shapes phase 3 timed")
+    for c in cases:
+        c["launches_per_frame"] = launched[tuple(c["shape"])] // N_FRAMES
+    sums = {k: sum(c[k] * c["launches_per_frame"] for c in cases)
+            for k in ("ms", "library_ms", "bound_ms")}
+    results["conv3x3_bn_relu"]["per_fusion_frame_ms"] = sums
+    log(f"kernel conv3x3_bn_relu per fusion frame ("
+        f"{sum(c['launches_per_frame'] for c in cases)} launches at "
+        f"{len(cases)} shapes, counted in the fusion path's run): kernel "
+        f"{sums['ms']:.3f} ms, cuDNN {sums['library_ms']:.3f} ms, bound "
+        f"{sums['bound_ms']:.3f} ms")
 
 
 def slice_parity(name, model, batch, kernels, dev):
@@ -905,13 +1010,14 @@ def main():
     train_kernel_phases(results, dev)
 
     # 4. the main paths, one or two models on the card at a time
-    launches = {main_path.PRESET: run_path(main_path.PRESET, model, batch)}
+    launches = {main_path.PRESET: run_path(main_path.PRESET, model,
+                                           batch)[0]}
     del levels
     path = main_path.GATHER_PATH
     gather, gather_batch = main_path.build_main_path(dev, path)
     with torch.inference_mode():
         gather_telemetry(gather, gather_batch)
-    launches[path] = run_path(path, gather, gather_batch)
+    launches[path] = run_path(path, gather, gather_batch)[0]
     gather_vs_pillar(gather, model, batch)
     del model, batch, gather, gather_batch
     torch.cuda.empty_cache()
@@ -919,7 +1025,8 @@ def main():
     model, batch = main_path.build_main_path(dev, preset)
     with torch.inference_mode():
         telemetry(model, batch)
-    launches[preset] = run_path(preset, model, batch)
+    launches[preset], shapes = run_path(preset, model, batch)
+    conv_per_fusion_frame(results, shapes)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -960,7 +1067,11 @@ def main():
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"],
+                            cases=r["cases"],
+                            **{k: r[k] for k in ("per_fusion_frame_ms",
+                                                 "host_us_per_launch")
+                               if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ kernel on a CUDA tensor calls `lib()`, which builds if needed.
 
 Every wrapper adds one to its entry of `launch_counts` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path reached.
+A wrapper may also name the shape it launched at (the 3x3 conv does):
+`launch_shapes` then counts the launches per (kernel, shape).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -32,6 +35,7 @@ KERNELS = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
            "flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv",
            "sorted_lookup", "rows_copy")
 launch_counts = dict.fromkeys(KERNELS, 0)
+launch_shapes: Counter = Counter()  # (kernel name, shape) -> launches
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -41,7 +45,9 @@ _SIGNATURES = {
     "cmt_pillar_conv_kb1": _PILLAR_ARGS,
     "cmt_pillar_occ_fold": [_P] * 3 + [_I] * 8 + [_P],
     "cmt_flash_attention_packed": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
-    "cmt_conv3x3_bn_relu": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "cmt_conv3x3_bn_relu_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "cmt_conv3x3_tc_weight_map": [_P, _I, _I, _I, _P],
+    "cmt_conv3x3_bn_relu_tc": [_P] * 6 + [_I] * 11 + [_P],
     "cmt_osa_aggregate": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P] * 5
     + [_I] * 3 + [_P],
     # kernels 7 and 8 take a pointer to one argument block and the stream
@@ -58,10 +64,13 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    launch_shapes.clear()
 
 
-def count(name: str) -> None:
+def count(name: str, shape: Optional[tuple] = None) -> None:
     launch_counts[name] += 1
+    if shape is not None:
+        launch_shapes[name, shape] += 1
 
 
 def sources() -> Sequence[Path]:
@@ -88,24 +97,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile `csrc/*.cu` into the cached shared library; returns its path."""
+    """Compile `csrc/*.cu` into the cached shared library; returns its path.
+    One nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    tmp_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
+        jobs = []
+        for src in cus:
+            cmd = [nvcc_path(), *compile_flags, "-c", "-I", str(CSRC), "-o",
+                   str(tmp_dir / (src.stem + ".o")), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outputs = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in jobs]
+        link = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp_dir / out.name),
+                *(str(tmp_dir / (src.stem + ".o")) for src in cus)]
+        if all(rc == 0 for _, _, rc in outputs):
+            res = subprocess.run(link, capture_output=True, text=True)
+            outputs.append((link, res.stdout + res.stderr, res.returncode))
+        for cmd, text, rc in outputs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                                   f"{text}")
+        os.replace(tmp_dir / out.name, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return out
 
 

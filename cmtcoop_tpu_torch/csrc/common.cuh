@@ -1,8 +1,9 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel takes float32 or bfloat16 operands (selected by a dtype code
-// at the C boundary: 0 = float32, 1 = bfloat16) and accumulates in float32,
-// the counterpart of the JAX package's `preferred_element_type=float32`.
+// The kernels take float32 or bfloat16 operands (selected by a dtype code
+// at the C boundary, 0 = float32 and 1 = bfloat16, or by one entry point
+// per dtype, as the 3x3 conv's) and accumulate in float32, the counterpart
+// of the JAX package's `preferred_element_type=float32`.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -11,7 +11,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cmtcoop_tpu_torch.ops.conv_cf import conv3x3_bn_relu, fold_bn
+from cmtcoop_tpu_torch.ops.conv_cf import (PackedConv3x3,
+                                           conv3x3_bn_relu_packed, fold_bn,
+                                           pack_conv3x3_weight)
 
 
 class BatchNorm(nn.Module):
@@ -76,6 +78,34 @@ class BatchNorm(nn.Module):
         return (y * mask[..., None]).to(x.dtype)
 
 
+class ConvPack:
+    """The packed operands of a 3x3 conv + BatchNorm (`pack_conv3x3_weight`
+    of the weight and the folded BN), held by its module for eval. Rebuilt
+    when the compute dtype changes or when the weight or a BN tensor is
+    replaced, moved or changed in place (data pointer, which moving to
+    another device changes, and version counter; `load_state_dict` copies
+    in place and so bumps the versions). An inference tensor keeps no
+    version counter: for one, only a new data pointer rebuilds. This trades
+    device memory (a bf16 copy of each 3x3 weight, ~50 MB for a VoVNet-99
+    agent) for the cast, permute, copy and BN fold that each of the fusion
+    frame's 162 conv launches would otherwise repeat: about a thousand
+    small launches a frame."""
+
+    def __init__(self):
+        self.key, self.packed = None, None
+
+    def __call__(self, weight: torch.Tensor, bn: BatchNorm,
+                 dtype) -> PackedConv3x3:
+        key = [dtype]
+        for t in (weight, bn.weight, bn.bias, bn.running_mean,
+                  bn.running_var):
+            key += (t.data_ptr(), 0 if t.is_inference() else t._version)
+        if key != self.key:
+            self.packed = pack_conv3x3_weight(weight, *bn.fold(), dtype)
+            self.key = key
+        return self.packed
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in `compute_dtype` (input and weights cast)."""
 
@@ -130,7 +160,8 @@ class LayerNorm(nn.LayerNorm):
 
 class ConvBNReLU(nn.Module):
     """3x3 stride-1 Conv2d(bias=False) + BatchNorm + ReLU on NHWC: the head's
-    `shared_conv`. Eval: one launch of kernel 4 (`conv3x3_bn_relu`). Train:
+    `shared_conv`. Eval: one launch of kernel 4 (`conv3x3_bn_relu`) on the
+    operands packed once (`ConvPack`). Train:
     `F.conv2d` + batch-statistics BN + ReLU under autograd, as the JAX
     train path takes the XLA conv (kernel 4 has no backward). State:
     `conv.weight`, `bn.*`."""
@@ -139,14 +170,15 @@ class ConvBNReLU(nn.Module):
         super().__init__()
         self.conv = Conv2d(cin, cout, 3)
         self.bn = BatchNorm(cout, eps)
+        self.pack = ConvPack()
 
     def forward(self, x_nhwc):
         if self.training:
             y = self.conv(x_nhwc.permute(0, 3, 1, 2))
             return torch.relu(self.bn(y)).permute(0, 2, 3, 1)
-        scale, bias = self.bn.fold()
-        return conv3x3_bn_relu(x_nhwc.contiguous(), self.conv.weight, scale,
-                               bias, relu=True)
+        x = x_nhwc.contiguous()
+        return conv3x3_bn_relu_packed(
+            x, self.pack(self.conv.weight, self.bn, x.dtype), relu=True)
 
 
 class MLP(nn.Sequential):

@@ -34,8 +34,9 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from cmtcoop_tpu_torch.models.layers import BatchNorm, Conv2d
-from cmtcoop_tpu_torch.ops.conv_cf import conv3x3_bn_relu, osa_aggregate
+from cmtcoop_tpu_torch.models.layers import BatchNorm, Conv2d, ConvPack
+from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu_packed,
+                                           osa_aggregate)
 
 STAGE_SPECS: Dict[str, dict] = {
     "V-19-slim-eSE": dict(
@@ -101,9 +102,9 @@ class eSE(nn.Module):
 
 class OSAModule(nn.Module):
     """One OSA block, eval: `layer_per_block` 3x3 conv units (one launch of
-    kernel 4 each), the aggregate over [x, conv outputs] (one launch of
-    kernel 6), eSE from the aggregate's spatial sums, and the identity when
-    `identity`."""
+    kernel 4 each, on operands packed once: `packs`), the aggregate over
+    [x, conv outputs] (one launch of kernel 6), eSE from the aggregate's
+    spatial sums, and the identity when `identity`."""
 
     def __init__(self, cin: int, stage_ch: int, concat_ch: int,
                  layer_per_block: int, name: str, identity: bool):
@@ -113,6 +114,7 @@ class OSAModule(nn.Module):
             nn.Sequential(OrderedDict(_conv_unit(
                 f"{name}_{i}", cin if i == 0 else stage_ch, stage_ch, 3)))
             for i in range(layer_per_block)])
+        self.packs = [ConvPack() for _ in range(layer_per_block)]
         self.concat = nn.Sequential(OrderedDict(_conv_unit(
             f"{name}_concat", cin + layer_per_block * stage_ch, concat_ch,
             1)))
@@ -134,9 +136,9 @@ class OSAModule(nn.Module):
             agg, gap = self._plain(x)
         else:
             parts = [x]
-            for layer in self.layers:
-                parts.append(conv3x3_bn_relu(parts[-1], layer[0].weight,
-                                             *layer[1].fold()))
+            for layer, pack in zip(self.layers, self.packs):
+                parts.append(conv3x3_bn_relu_packed(
+                    parts[-1], pack(layer[0].weight, layer[1], x.dtype)))
             scale, bias = self.concat[1].fold()
             agg, gap = osa_aggregate(parts,
                                      self.concat[0].weight[:, :, 0, 0].t(),

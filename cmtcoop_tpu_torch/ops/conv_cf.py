@@ -3,19 +3,26 @@ cmtcoop_tpu/ops/conv_cf.py):
 
 - `conv3x3_bn_relu`: fused 3x3 conv + folded eval BatchNorm (+ residual)
   + ReLU, the counterpart of `conv3x3_cf` (kernel 4, and kernel 5 with a
-  residual);
+  residual); `conv3x3_bn_relu_packed` is the same on operands packed once
+  by `pack_conv3x3_weight`, as the eval modules hold them;
 - `osa_aggregate`: the OSA aggregate, a 1x1 conv over the virtual concat of
   a block's parts + folded BN + ReLU with the eSE spatial sums as a second
   output, the counterpart of `osa_agg_cf` (kernel 6).
 
 Each takes its plain version for a CPU tensor and launches its hand-written
-CUDA kernel (csrc/conv3x3.cu, csrc/osa_agg.cu) for a CUDA tensor. The TPU
-kernels' channels-first lane layout (`to_cf` / `from_cf` / `lane_mask`) has
-no counterpart: the kernels read and write NHWC.
+CUDA kernel (csrc/conv3x3.cu, csrc/osa_agg.cu) for a CUDA tensor. Kernel 4
+has two routes, chosen by dtype: bfloat16 runs the tensor-core implicit GEMM
+(wgmma fed by TMA) with the launch plan of `conv3x3_plan`; float32 runs the
+CUDA-core kernel that serves the float32 checks. The TPU kernels'
+channels-first lane layout (`to_cf` / `from_cf` / `lane_mask`) has no
+counterpart: the kernels read and write NHWC.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import ctypes
+import dataclasses
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +30,13 @@ import torch.nn.functional as F
 from cmtcoop_tpu_torch import _build
 
 MAX_PARTS = 6  # part pointers the aggregate kernel takes
+# the bf16 conv kernel (csrc/conv3x3.cu, which checks a plan against its
+# own copy of these): input channels per K step (one 128-byte swizzled
+# row), output pixels along x per tile row, and the block widths it is
+# built for (Cout is rounded up to one; a wider Cout raises)
+CHUNK = 64
+BOX_W = 16
+WIDTHS = (64, 128, 160, 192, 224, 256)
 
 
 def fold_bn(weight, bias, running_mean, running_var, eps: float):
@@ -45,6 +59,147 @@ def conv3x3_bn_relu_reference(x, weight, scale, bias, relu: bool = True,
     return y.to(x.dtype)
 
 
+@dataclasses.dataclass(eq=False)
+class PackedConv3x3:
+    """A 3x3 conv's operands as both kernel routes read them."""
+    weight: torch.Tensor  # (Cout, 9 * cin_pad) in the compute dtype
+    scale: torch.Tensor  # (Cout,) float32, the folded BN
+    bias: torch.Tensor  # (Cout,) float32
+    source: torch.Tensor  # the (Cout, Cin, 3, 3) weight: the plain operand
+    # the bf16 kernel's TMA map of `weight` (128 bytes of host memory),
+    # encoded at the first launch and fixed for the pack's life
+    tc_map: Optional[ctypes.Array] = None
+
+    @property
+    def cin(self) -> int:
+        return self.source.shape[1]
+
+    @property
+    def cout(self) -> int:
+        return self.source.shape[0]
+
+
+def pack_conv3x3_weight(weight: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, dtype) -> PackedConv3x3:
+    """(Cout, Cin, 3, 3) -> (Cout, 9 * cin_pad) in `dtype`, K-major: column
+    tap * cin_pad + ci holds weight[:, ci, dy, dx] with tap = dy * 3 + dx,
+    zero for ci >= Cin (cin_pad = Cin rounded up to CHUNK, the K rows the
+    bf16 kernel's zero-filled channel tail meets); scale and bias as
+    contiguous float32."""
+    cout, cin = weight.shape[:2]
+    cin_pad = -(-cin // CHUNK) * CHUNK
+    with torch.no_grad():
+        wk = torch.zeros(cout, 3, 3, cin_pad, dtype=dtype,
+                         device=weight.device)
+        wk[..., :cin] = weight.permute(0, 2, 3, 1)
+        return PackedConv3x3(wk.reshape(cout, 9 * cin_pad),
+                             scale.detach().float().contiguous(),
+                             bias.detach().float().contiguous(), weight)
+
+
+class ConvPlan(NamedTuple):
+    """The bf16 kernel's launch: blocks of `wg` consumer warpgroups cover a
+    (4 * wg) x BOX_W pixel box of one image and all `bn` >= Cout channels;
+    the grid is N * tiles_h * tiles_w blocks, x fastest; each block runs K
+    in 9 taps x cin_pad / CHUNK steps."""
+    bn: int
+    wg: int
+    tiles_w: int
+    tiles_h: int
+    cin_pad: int
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_plan(n: int, h: int, w: int, cin: int, cout: int,
+                 n_sms: int) -> ConvPlan:
+    """The bf16 kernel's plan for x (n, h, w, cin) -> cout channels on a
+    card of `n_sms` SMs: 128-pixel tiles (two consumer warpgroups, one
+    block per SM) when they fill a wave, else 64-pixel tiles (one
+    warpgroup, two blocks per SM). Raises ValueError unless Cin and Cout
+    are multiples of 8 (TMA needs 16-byte strides) and Cout <= 256 (one
+    block covers all of Cout)."""
+    if cin % 8 or cout % 8 or cout > WIDTHS[-1]:
+        raise ValueError(f"conv3x3_bn_relu: the bfloat16 kernel takes Cin and "
+                         f"Cout multiples of 8 and Cout <= {WIDTHS[-1]}, got "
+                         f"x {(n, h, w, cin)} -> Cout {cout}")
+    bn = next(b for b in WIDTHS if b >= cout)
+    tiles_w = -(-w // BOX_W)
+    wg = 2 if n * -(-h // 8) * tiles_w >= n_sms else 1
+    return ConvPlan(bn, wg, tiles_w, -(-h // (4 * wg)),
+                    -(-cin // CHUNK) * CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _weight_map(packed: PackedConv3x3, bn: int) -> ctypes.Array:
+    """The packed weight's TMA map for the bf16 kernel, encoded once."""
+    if packed.tc_map is None:
+        buf = ctypes.create_string_buffer(128)
+        _build.check(_build.lib().cmt_conv3x3_tc_weight_map(
+            packed.weight.data_ptr(), packed.weight.shape[1] // 9,
+            packed.cout, bn, buf), "cmt_conv3x3_tc_weight_map")
+        packed.tc_map = buf
+    return packed.tc_map
+
+
+def conv3x3_bn_relu_packed(x: torch.Tensor, packed: PackedConv3x3,
+                           relu: bool = True,
+                           residual: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """`conv3x3_bn_relu` on operands from `pack_conv3x3_weight` in x's
+    dtype. With a residual it runs kernel 5 (counted as
+    `conv3x3_bn_relu_resid`), else kernel 4."""
+    if x.device.type == "cpu":
+        return conv3x3_bn_relu_reference(x, packed.source, packed.scale,
+                                          packed.bias, relu, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_bn_relu: no kernel for {x.device}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("conv3x3_bn_relu: x must be contiguous NHWC")
+    n, h, w, cin = x.shape
+    cout = packed.cout
+    cin_pad = packed.weight.shape[1] // 9
+    if (packed.cin != cin or packed.weight.dtype != x.dtype
+            or packed.weight.device != x.device
+            or packed.scale.device != x.device):
+        raise ValueError(f"conv3x3_bn_relu: weight packed for Cin "
+                         f"{packed.cin} {packed.weight.dtype} on "
+                         f"{packed.weight.device} does not match x "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if residual is not None and (
+            residual.shape != (n, h, w, cout) or residual.dtype != x.dtype
+            or residual.device != x.device or not residual.is_contiguous()):
+        raise ValueError("conv3x3_bn_relu: residual must be a contiguous "
+                         f"{(n, h, w, cout)} tensor like x")
+    out = torch.empty(n, h, w, cout, dtype=x.dtype, device=x.device)
+    rest = (packed.scale.data_ptr(), packed.bias.data_ptr(),
+            _build.ptr(residual), out.data_ptr())
+    stream = _build.stream_ptr(x.device)
+    if x.dtype == torch.bfloat16:
+        plan = conv3x3_plan(n, h, w, cin, cout, sm_count(x.device))
+        if x.data_ptr() % 16 or (rest[2] or 0) % 16:
+            raise ValueError("conv3x3_bn_relu: x and the residual must be "
+                             "16-byte aligned for TMA")
+        _build.check(_build.lib().cmt_conv3x3_bn_relu_tc(
+            x.data_ptr(), _weight_map(packed, plan.bn), *rest, n, h, w, cin,
+            cin_pad, cout, plan.bn, plan.wg, plan.tiles_w, plan.tiles_h,
+            int(relu), stream), "cmt_conv3x3_bn_relu_tc")
+    elif x.dtype == torch.float32:
+        _build.check(_build.lib().cmt_conv3x3_bn_relu_f32(
+            x.data_ptr(), packed.weight.data_ptr(), *rest, n, h, w, cin,
+            cin_pad, cout, int(relu), stream), "cmt_conv3x3_bn_relu_f32")
+    else:
+        raise TypeError(f"conv3x3_bn_relu: kernels take float32 or "
+                        f"bfloat16, got {x.dtype}")
+    _build.count("conv3x3_bn_relu" if residual is None
+                 else "conv3x3_bn_relu_resid", (n, h, w, cin, cout))
+    return out
+
+
 def conv3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor,
                     relu: bool = True,
@@ -52,40 +207,22 @@ def conv3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,
     """x (N, H, W, Cin), weight (Cout, Cin, 3, 3) (torch layout), scale and
     bias (Cout,) float32, residual None or (N, H, W, Cout) in x's dtype ->
     (N, H, W, Cout) in x's dtype; stride 1, pad 1. With a residual it runs
-    kernel 5 (counted as `conv3x3_bn_relu_resid`), else kernel 4."""
+    kernel 5 (counted as `conv3x3_bn_relu_resid`), else kernel 4. Packs the
+    weight on every call: the eval modules hold theirs packed."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_reference(x, weight, scale, bias, relu,
                                           residual)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu: no kernel for {x.device}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("conv3x3_bn_relu: x must be contiguous NHWC")
-    n, h, w, cin = x.shape
     cout = weight.shape[0]
-    if weight.shape != (cout, cin, 3, 3) or weight.device != x.device:
+    if (x.dim() != 4 or weight.shape != (cout, x.shape[-1], 3, 3)
+            or weight.device != x.device):
         raise ValueError(f"conv3x3_bn_relu: weight {tuple(weight.shape)} does "
-                         f"not match Cin {cin}")
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+                         f"not match x {tuple(x.shape)}")
     if scale.shape != (cout,) or bias.shape != (cout,):
         raise ValueError("conv3x3_bn_relu: scale and bias must be (Cout,)")
-    if residual is not None and (
-            residual.shape != (n, h, w, cout) or residual.dtype != x.dtype
-            or residual.device != x.device or not residual.is_contiguous()):
-        raise ValueError("conv3x3_bn_relu: residual must be a contiguous "
-                         f"{(n, h, w, cout)} tensor like x")
-    # (Cout, Cin, 3, 3) -> (9*Cin, Cout), row (dy*3 + dx)*Cin + ci
-    wk = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9 * cin, cout)
-    wk = wk.contiguous()
-    out = torch.empty(n, h, w, cout, dtype=x.dtype, device=x.device)
-    _build.check(_build.lib().cmt_conv3x3_bn_relu(
-        _build.dtype_code(x.dtype), x.data_ptr(), wk.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), _build.ptr(residual),
-        out.data_ptr(), n, h, w, cin, cout, int(relu),
-        _build.stream_ptr(x.device)), "cmt_conv3x3_bn_relu")
-    _build.count("conv3x3_bn_relu" if residual is None
-                 else "conv3x3_bn_relu_resid")
-    return out
+    return conv3x3_bn_relu_packed(
+        x, pack_conv3x3_weight(weight, scale, bias, x.dtype), relu, residual)
 
 
 def _fold_agg_weight(weight, scale, dtype):

@@ -32,8 +32,11 @@ stage's host span (the Hungarian's share of the step is the host part of
   to the stage whose host span launched it (`rv pe`: the image tokens' and
   the queries' RV position encodings; `other`: the BEV query embedding, the
   fusion and the decode);
-- `top_kernels_ms`: the device time of the busiest kernels by name, and
-  `train_kernels_ms` that of kernels 7 and 8 (`flash_train_*`).
+- `top_kernels_ms`: the device time of the busiest kernels by name,
+  `top_kernel_families_ms` the same summed over each kernel's
+  instantiations (the name up to its template or argument list: kernel 4
+  is `conv_tc::conv3x3_tc_kernel` in bf16), and `train_kernels_ms` that
+  of kernels 7 and 8 (`flash_train_*`).
 
 It prints the summary as JSON and writes it, with the Chrome trace, to
 `--out` (default `build/profile/` in the checkout).
@@ -107,6 +110,13 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
+def kernel_family(name: str) -> str:
+    """A kernel's name without `void`, template arguments or parameters."""
+    name = name.removeprefix("void ")
+    cut = [i for i in (name.find("<"), name.find("(")) if i > 0]
+    return name[:min(cut)].rstrip() if cut else name
+
+
 def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
     """Per-frame numbers from a Chrome trace of `n_frames` frames, each
     inside a host span named `frame` (times in the trace are us); device
@@ -147,6 +157,10 @@ def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
     span_ms = sum(e - s for s, e in frames) / 1e3
     busy_ms = _union_ms(busy)
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]
+    family_us = defaultdict(float)
+    for k, v in kernel_us.items():
+        family_us[kernel_family(k)] += v
+    families = sorted(family_us.items(), key=lambda kv: -kv[1])[:15]
     return dict(
         frames=n_frames, frame_ms=span_ms / n_frames,
         device_busy_ms=busy_ms / n_frames, idle_share=1 - busy_ms / span_ms,
@@ -156,6 +170,7 @@ def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
         stage_host_ms={k: host_us[k] / 1e3 / n_frames for k in stage_names
                        if k in host_us},
         top_kernels_ms={k: v / 1e3 / n_frames for k, v in top},
+        top_kernel_families_ms={k: v / 1e3 / n_frames for k, v in families},
         train_kernels_ms={k: v / 1e3 / n_frames for k, v in kernel_us.items()
                           if "flash_train" in k})
 

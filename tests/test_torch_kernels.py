@@ -32,9 +32,11 @@ from cmtcoop_tpu_torch.ops.attention import (
     flash_attention_kvmask, flash_attention_kvmask_reference,
     flash_attention_packed, flash_attention_packed_reference)
 from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
+                                           conv3x3_bn_relu_packed,
                                            conv3x3_bn_relu_reference,
-                                           osa_aggregate,
-                                           osa_aggregate_reference)
+                                           conv3x3_plan, osa_aggregate,
+                                           osa_aggregate_reference,
+                                           pack_conv3x3_weight, sm_count)
 from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, sorted_lookup,
                                                  sorted_lookup_reference)
 from cmtcoop_tpu_torch.ops.pillar_fused import (fused_pillar_conv,
@@ -247,6 +249,23 @@ def test_launch_counts_reset():
     assert tuple(_build.launch_counts) == _build.KERNELS
 
 
+def test_launch_shapes_counted_beside_launches_and_reset():
+    """A wrapper that names its shape adds one to its count and one to that
+    (kernel, shape)'s; a reset clears both."""
+    _build.reset_counts()
+    for shape in ((1, 20, 50, 224, 224), (3, 40, 100, 192, 192),
+                  (1, 20, 50, 224, 224)):
+        _build.count("conv3x3_bn_relu", shape)
+    _build.count("osa_aggregate")
+    assert _build.launch_counts["conv3x3_bn_relu"] == 3
+    assert dict(_build.launch_shapes) == {
+        ("conv3x3_bn_relu", (1, 20, 50, 224, 224)): 2,
+        ("conv3x3_bn_relu", (3, 40, 100, 192, 192)): 1}
+    _build.reset_counts()
+    assert not _build.launch_shapes
+    assert set(_build.launch_counts.values()) == {0}
+
+
 def test_profile_summary_reads_one_trace():
     """Idle share, stage and kernel device times from a hand-made trace of
     two 100 us frames (Chrome trace times in us)."""
@@ -310,6 +329,28 @@ def test_profile_summary_train_stages():
         {"flash_train_fwd_kernel<bf16>": 0.1,
          "flash_train_bwd_dkv_kernel<bf16>": 0.3})
     assert got["idle_share"] == pytest.approx(0.57)
+
+
+def test_profile_summary_sums_kernel_families():
+    """Each kernel's instantiations summed under its name without `void`,
+    template arguments or parameters (kernel 4's bf16 instantiations are
+    one `conv_tc::conv3x3_tc_kernel`)."""
+    trace = {"traceEvents": [
+        dict(ph="X", cat="user_annotation", name="frame", ts=0, dur=100)] + [
+        dict(ph="X", cat="kernel", name=name, ts=ts, dur=dur, args={})
+        for name, ts, dur in (
+            ("void conv_tc::conv3x3_tc_kernel<192, 1, false>(CUtensorMap_st)",
+             0, 10),
+            ("void conv_tc::conv3x3_tc_kernel<256, 2, true>(CUtensorMap_st)",
+             10, 20),
+            ("void osa_agg_kernel<__nv_bfloat16>(OsaParts)", 30, 25),
+            ("Memset (Device)", 60, 5))]}
+    got = profile_path.summarize(trace, 1)
+    assert got["top_kernel_families_ms"] == pytest.approx(
+        {"conv_tc::conv3x3_tc_kernel": 0.03, "osa_agg_kernel": 0.025,
+         "Memset": 0.005})
+    assert profile_path.kernel_family("at::native::f<8>(int)") == \
+        "at::native::f"
 
 
 def test_profile_spans_leave_the_model_unchanged():
@@ -468,44 +509,107 @@ def test_attention_kernel_matches_plain(dtype, tol, heads, dh, nq, nk):
                   flash_attention_packed_reference(q, k, v, kb, heads), tol)
 
 
+# kernel 4/5 shapes on the card: stage 5 of one view (under one wave, W not
+# a multiple of the 16-pixel tile row; Cin 224 and 1024), stage 4 of three
+# views (64-pixel tiles), the head (180x180, 128-pixel tiles, 2.1 waves), a
+# ragged 45x45 head, and narrow widths (Cin 24 < the 64-channel chunk, Cout
+# 40 < the 64-wide block)
+CONV_SHAPES = [(1, 20, 50, 224, 224), (1, 20, 50, 1024, 224),
+               (3, 40, 100, 768, 192), (1, 180, 180, 512, 256),
+               (1, 45, 45, 512, 256), (2, 7, 13, 24, 40)]
+
+
+def _conv_inputs(dev, dtype, shape, with_resid):
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype)
+    wt = torch.randn(cout, cin, 3, 3, generator=g, device=dev) \
+        / (9 * cin) ** 0.5
+    s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
+    kw = {}
+    if with_resid:
+        kw["residual"] = torch.randn(b, h, w, cout, generator=g,
+                                     device=dev).to(dtype)
+    return (x, wt, s, bb), kw
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 45, 45, 512, 256), (2, 7, 13, 24, 40)])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_kernel_matches_plain(dtype, tol, shape):
+    """Kernel 4: bf16 on the tensor cores, float32 on the CUDA cores; one
+    launch counted under its name."""
     dev = cuda_device()
-    b, h, w, cin, cout = shape
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype)
-    wt = torch.randn(cout, cin, 3, 3, generator=g, device=dev) \
-        / (9 * cin) ** 0.5
-    s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
-    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
-    _assert_close(conv3x3_bn_relu(x, wt, s, bb),
-                  conv3x3_bn_relu_reference(x, wt, s, bb), tol)
+    args, _ = _conv_inputs(dev, dtype, shape, False)
+    before = dict(_build.launch_counts)
+    got = conv3x3_bn_relu(*args)
+    assert _build.launch_counts["conv3x3_bn_relu"] == \
+        before["conv3x3_bn_relu"] + 1
+    assert _build.launch_counts["conv3x3_bn_relu_resid"] == \
+        before["conv3x3_bn_relu_resid"]
+    _assert_close(got, conv3x3_bn_relu_reference(*args), tol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("shape", [(3, 20, 30, 160, 160), (2, 7, 13, 24, 40)])
+@pytest.mark.parametrize("shape", [(3, 20, 30, 160, 160)] + CONV_SHAPES)
 def test_conv_residual_kernel_matches_plain(dtype, tol, shape):
-    """Kernel 5: a ragged pixel tile (M % 128 != 0) and Cout not a multiple
-    of the 128-wide tile in both shapes."""
+    """Kernel 5: ragged pixel tiles, Cout not a multiple of 128 (160, 224,
+    192, 40)."""
     dev = cuda_device()
-    b, h, w, cin, cout = shape
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype)
-    wt = torch.randn(cout, cin, 3, 3, generator=g, device=dev) \
-        / (9 * cin) ** 0.5
-    s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
-    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
-    res = torch.randn(b, h, w, cout, generator=g, device=dev).to(dtype)
+    args, kw = _conv_inputs(dev, dtype, shape, True)
     before = dict(_build.launch_counts)
-    _assert_close(conv3x3_bn_relu(x, wt, s, bb, residual=res),
-                  conv3x3_bn_relu_reference(x, wt, s, bb, residual=res), tol)
+    _assert_close(conv3x3_bn_relu(*args, **kw),
+                  conv3x3_bn_relu_reference(*args, **kw), tol)
     assert _build.launch_counts["conv3x3_bn_relu_resid"] == \
         before["conv3x3_bn_relu_resid"] + 1
     assert _build.launch_counts["conv3x3_bn_relu"] == \
         before["conv3x3_bn_relu"]
+
+
+@pytest.mark.cuda
+def test_bf16_conv_keeps_its_weight_map_and_checks_the_plan():
+    """The packed weight's TMA map is encoded at the first bf16 launch and
+    kept; each launch records its shape; the C entry point refuses a plan
+    whose tiles do not cover the image exactly."""
+    dev = cuda_device()
+    shape = (1, 20, 50, 224, 224)
+    (x, wt, s, bb), _ = _conv_inputs(dev, torch.bfloat16, shape, False)
+    packed = pack_conv3x3_weight(wt, s, bb, torch.bfloat16)
+    assert packed.tc_map is None
+    _build.reset_counts()
+    y = conv3x3_bn_relu_packed(x, packed)
+    first = packed.tc_map
+    assert first is not None
+    assert torch.equal(conv3x3_bn_relu_packed(x, packed), y)
+    assert packed.tc_map is first
+    assert _build.launch_shapes == {("conv3x3_bn_relu", shape): 2}
+    plan = conv3x3_plan(*shape, sm_count(x.device))
+    out = torch.empty_like(y)
+    for tiles_w, tiles_h in ((plan.tiles_w + 1, plan.tiles_h),
+                             (plan.tiles_w, plan.tiles_h - 1)):
+        rc = _build.lib().cmt_conv3x3_bn_relu_tc(
+            x.data_ptr(), first, packed.scale.data_ptr(),
+            packed.bias.data_ptr(), None, out.data_ptr(), *shape[:4],
+            plan.cin_pad, shape[4], plan.bn, plan.wg, tiles_w, tiles_h, 1,
+            _build.stream_ptr(x.device))
+        assert rc != 0
+
+
+@pytest.mark.cuda
+def test_bf16_conv_refuses_cin_12():
+    """TMA needs 16-byte strides: bf16 with Cin 12 raises before any launch
+    (float32 takes the CUDA-core kernel, which has no such limit)."""
+    dev = cuda_device()
+    args, _ = _conv_inputs(dev, torch.bfloat16, (1, 8, 8, 12, 16), False)
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3_bn_relu(*args)
+    assert _build.launch_counts == before
+    x, *rest = args
+    _assert_close(conv3x3_bn_relu(x.float(), *rest),
+                  conv3x3_bn_relu_reference(x.float(), *rest), 1e-4)
 
 
 @pytest.mark.cuda
