@@ -12,8 +12,9 @@ Phases, each raising on failure (the script then exits non-zero):
      at the main paths' shapes (neighbour maps and occupancy from the
      benchmark cloud; kernel 4 at every shape the fusion path gives it, 20
      VoVNet stage shapes and the head, on operands packed once as the
-     eval modules hold them, and its wrappers' host cost per launch; the
-     train step's
+     eval modules hold them, and its wrappers' host cost per launch;
+     kernel 6 likewise at all 14 of the fusion path's OSA aggregate shapes;
+     the train step's
      cross-attention, 1540 queries x 44400 keys x 8 heads x 32 with a
      quarter of the keys at NEG_INF, dropout 0.1 and 0), in bfloat16 (and
      float32 at one or two cases a kernel), with error, tolerance and time,
@@ -37,8 +38,9 @@ Phases, each raising on failure (the script then exits non-zero):
      outputs) and decoder outputs, the launch count of every kernel of the
      path above zero and of every other kernel zero; on the fusion path
      memories of 36400 (vehicle) and 44400 (infrastructure) tokens, and
-     kernel 4's launches counted per shape, which weight phase 3's kernel,
-     cuDNN and bound times into sums per fusion frame. Between
+     kernel 4's and kernel 6's launches counted per shape, which weight
+     phase 3's kernel, library (cuDNN; cat + bf16 matmul) and bound times
+     into sums per fusion frame. Between
      the gather and the fusion paths, a float32 check at full width: the
      gather encoder against the pillar encoder on the same weights and the
      vehicle cloud (they compute the same function), max |gather - pillar|
@@ -109,6 +111,22 @@ CONV_PATH_SHAPES = [(1, 180, 180, 512, 256, "head")] + [
         (4, 40, 100, 512, 192), (4, 40, 100, 768, 192),
         (4, 40, 100, 192, 192), (5, 20, 50, 768, 224),
         (5, 20, 50, 1024, 224), (5, 20, 50, 224, 224))]
+# kernel 6's shapes on the fusion path, (views, H, W, parts' channels, Cout,
+# where): the aggregate of each OSA block of VoVNet-99 (a stage's first
+# block takes the previous stage's output as its first part, the others
+# their own block's input; five conv outputs follow), timed and weighted as
+# kernel 4's are
+AGG_PATH_SHAPES = [
+    (v, h, w, (cin,) + (ch,) * 5, cout, f"stage {st}{which}")
+    for v in (3, 1)
+    for st, which, h, w, cin, ch, cout in (
+        (2, "", 160, 400, 128, 128, 256),
+        (3, " first", 80, 200, 256, 160, 512),
+        (3, " rest", 80, 200, 512, 160, 512),
+        (4, " first", 40, 100, 512, 192, 768),
+        (4, " rest", 40, 100, 768, 192, 768),
+        (5, " first", 20, 50, 768, 224, 1024),
+        (5, " rest", 20, 50, 1024, 224, 1024))]
 
 SOURCES = {
     "pillar_conv_kb9": ("cmtcoop_tpu_torch/csrc/pillar_conv.cu",
@@ -319,16 +337,20 @@ def sdpa(q, k, v, k_bias, dropout_p=0.0):
 
 
 def kernel_phases(lv, results, dev):
-    from cmtcoop_tpu_torch.models.layers import ConvBNReLU
+    from cmtcoop_tpu_torch.models.layers import (AggPack, BatchNorm,
+                                                 Conv2d, ConvBNReLU)
     from cmtcoop_tpu_torch.ops import pillars as pu
     from cmtcoop_tpu_torch.ops.attention import (
         NEG_INF, flash_attention_packed, flash_attention_packed_reference)
     from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                                conv3x3_bn_relu_packed,
                                                conv3x3_bn_relu_reference,
+                                               osa_agg_plan, osa_agg_plans,
                                                osa_aggregate,
+                                               osa_aggregate_packed,
                                                osa_aggregate_reference,
-                                               pack_conv3x3_weight)
+                                               pack_conv3x3_weight,
+                                               pack_osa_weight, sm_count)
     from cmtcoop_tpu_torch.ops.pillar_fused import (
         fused_pillar_conv, fused_pillar_conv_reference)
 
@@ -451,31 +473,77 @@ def kernel_phases(lv, results, dev):
         f"{us['eval_module']:.1f}, packing per call "
         f"{us['packing_per_call']:.1f}")
 
-    def agg_work(parts, wt, s, b):
-        v, h, w = parts[0].shape[:3]
-        cout = wt.shape[1]
-        return (nbytes(*parts, s, b) + wt.numel() * parts[0].element_size()
-                + v * h * w * cout * parts[0].element_size() + v * cout * 4,
-                2.0 * v * h * w * wt.shape[0] * cout)
+    # kernel 6 likewise, through the packed wrapper; the plain version
+    # takes the pack's source weight and folded BN, the library call is
+    # the cat and one bf16 matmul (no fold, bias or ReLU)
+    def agg_plain(parts, packed):
+        return osa_aggregate_reference(parts, packed.source, packed.scale,
+                                       packed.bias)
 
-    def agg_library(parts, wt, s, b):
-        w = wt.to(parts[0].dtype)
+    def agg_work(parts, packed):
+        v, h, w = parts[0].shape[:3]
+        esize = parts[0].element_size()
+        return (nbytes(*parts, packed.scale, packed.bias)
+                + packed.source.numel() * esize
+                + v * h * w * packed.cout * esize + v * packed.cout * 4,
+                2.0 * v * h * w * packed.source.shape[0] * packed.cout)
+
+    def agg_library(parts, packed):
+        w = packed.source.to(parts[0].dtype)
         return lambda: torch.cat(parts, dim=-1).reshape(-1, w.shape[0]) @ w
 
-    def agg_case(note, v, h, w, chans, cout):
+    def agg_case(note, v, h, w, chans, cout, fp32):
         parts = [randn(v, h, w, c) for c in chans]
         wt = randn(sum(chans), cout, scale=sum(chans) ** -0.5)
         s, b = 1.0 + 0.1 * randn(cout), 0.1 * randn(cout)
-        compare("osa_aggregate", note, osa_aggregate,
-                osa_aggregate_reference,
-                lambda dt: (([p.to(dt) for p in parts], wt, s, b), {}),
+        compare("osa_aggregate", note, osa_aggregate_packed, agg_plain,
+                lambda dt: (([p.to(dt) for p in parts],
+                             pack_osa_weight(wt, s, b, chans, dt)), {}),
                 results, exact_side=False, library=agg_library,
-                work=agg_work)
+                work=agg_work,
+                dtypes=((torch.bfloat16, torch.float32) if fp32
+                        else (torch.bfloat16,)),
+                info=dict(shape=[v, h, w, *chans, cout]))
+        # every tile the bf16 kernel takes, timed on the same inputs, beside
+        # the plan's choice
+        xs = [p.to(torch.bfloat16) for p in parts]
+        packed = pack_osa_weight(wt, s, b, chans, torch.bfloat16)
+        plans = {f"128x{p.bn}": cuda_ms(
+            lambda p=p: osa_aggregate_packed(xs, packed, p))
+            for p in osa_agg_plans(v, h * w, chans, cout)}
+        chosen = osa_agg_plan(v, h * w, tuple(chans), cout, sm_count(dev))
+        case = results["osa_aggregate"]["cases"][-1]
+        case.update(plan=f"128x{chosen.bn}", plans_ms=plans)
+        log(f"kernel osa_aggregate [{note}] bfloat16 ms by tile (pixels x "
+            f"columns): " + ", ".join(f"{k} {t:.4f}" for k, t in
+                                      plans.items())
+            + f"; the plan takes {case['plan']}")
+        return xs, wt, s, b
 
-    agg_case("stage 2 V3 160x400 128+5x128->256 (agg; output 1 = gap)", 3,
-             160, 400, (128,) + (128,) * 5, 256)
-    agg_case("stage 4 identity block V3 40x100 768+5x192->768 (agg; "
-             "output 1 = gap)", 3, 40, 100, (768,) + (192,) * 5, 768)
+    # float32 too (the CUDA-core route) at stage 2 V3 and stage 4 rest V3
+    for v, h, w, chans, cout, note in AGG_PATH_SHAPES:
+        last = agg_case(f"{note} V{v} {h}x{w} {chans[0]}+5x{chans[1]}->"
+                        f"{cout} (agg; output 1 = gap)", v, h, w, chans,
+                        cout, v == 3 and note in ("stage 2", "stage 4 rest"))
+    # the host cost per launch at the last shape (stage 5 V1): the wrapper
+    # on a held pack, the eval module's path (its pack's cache check
+    # included: the 1x1 conv's weight, its BN), and packing per call
+    parts, wt, s, b = last
+    chans = [p.shape[-1] for p in parts]
+    packed = pack_osa_weight(wt, s, b, chans, torch.bfloat16)
+    conv = Conv2d(sum(chans), wt.shape[1], 1).to(dev)
+    bn = BatchNorm(wt.shape[1], 1e-5).to(dev)
+    pack = AggPack()
+    us = dict(packed=host_us(lambda: osa_aggregate_packed(parts, packed)),
+              eval_module=host_us(lambda: osa_aggregate_packed(
+                  parts, pack(conv.weight, bn, chans, torch.bfloat16))),
+              packing_per_call=host_us(lambda: osa_aggregate(parts, wt, s,
+                                                             b)))
+    results["osa_aggregate"]["host_us_per_launch"] = us
+    log(f"kernel osa_aggregate host us per launch ({tuple(parts[0].shape)} "
+        f"x {len(parts)} parts -> {wt.shape[1]}): packed once "
+        f"{us['packed']:.1f}, eval module {us['eval_module']:.1f}, packing "
+        f"per call {us['packing_per_call']:.1f}")
 
 
 def train_kernel_phases(results, dev):
@@ -782,27 +850,26 @@ def run_path(preset, model, batch):
     return launches, shapes
 
 
-def conv_per_fusion_frame(results, shapes):
-    """Kernel 4 per fusion frame: phase 3's times at each shape weighted by
-    the launches the fusion path's timed frames made at it (`shapes`,
-    (kernel, shape) -> launches over N_FRAMES frames). Raises unless the
-    path launched at exactly the shapes phase 3 timed."""
-    cases = results["conv3x3_bn_relu"]["cases"]
-    launched = {shape: n for (name, shape), n in shapes.items()
-                if name == "conv3x3_bn_relu"}
+def per_fusion_frame(results, shapes, name, library):
+    """Kernel `name` per fusion frame: phase 3's times at each shape
+    weighted by the launches the fusion path's timed frames made at it
+    (`shapes`, (kernel, shape) -> launches over N_FRAMES frames). Raises
+    unless the path launched at exactly the shapes phase 3 timed."""
+    cases = results[name]["cases"]
+    launched = {shape: n for (k, shape), n in shapes.items() if k == name}
     timed = {tuple(c["shape"]) for c in cases}
     if set(launched) != timed or any(n % N_FRAMES for n in launched.values()):
-        raise AssertionError(f"kernel 4's fusion-path shapes {launched} are "
+        raise AssertionError(f"{name}'s fusion-path shapes {launched} are "
                              f"not the {len(timed)} shapes phase 3 timed")
     for c in cases:
         c["launches_per_frame"] = launched[tuple(c["shape"])] // N_FRAMES
     sums = {k: sum(c[k] * c["launches_per_frame"] for c in cases)
             for k in ("ms", "library_ms", "bound_ms")}
-    results["conv3x3_bn_relu"]["per_fusion_frame_ms"] = sums
-    log(f"kernel conv3x3_bn_relu per fusion frame ("
+    results[name]["per_fusion_frame_ms"] = sums
+    log(f"kernel {name} per fusion frame ("
         f"{sum(c['launches_per_frame'] for c in cases)} launches at "
         f"{len(cases)} shapes, counted in the fusion path's run): kernel "
-        f"{sums['ms']:.3f} ms, cuDNN {sums['library_ms']:.3f} ms, bound "
+        f"{sums['ms']:.3f} ms, {library} {sums['library_ms']:.3f} ms, bound "
         f"{sums['bound_ms']:.3f} ms")
 
 
@@ -1026,7 +1093,8 @@ def main():
     with torch.inference_mode():
         telemetry(model, batch)
     launches[preset], shapes = run_path(preset, model, batch)
-    conv_per_fusion_frame(results, shapes)
+    per_fusion_frame(results, shapes, "conv3x3_bn_relu", "cuDNN")
+    per_fusion_frame(results, shapes, "osa_aggregate", "cat + bf16 matmul")
     del model, batch
     torch.cuda.empty_cache()
 

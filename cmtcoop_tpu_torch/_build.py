@@ -8,7 +8,8 @@ kernel on a CUDA tensor calls `lib()`, which builds if needed.
 
 Every wrapper adds one to its entry of `launch_counts` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path reached.
-A wrapper may also name the shape it launched at (the 3x3 conv does):
+A wrapper may also name the shape it launched at (the 3x3 conv and the
+OSA aggregate do):
 `launch_shapes` then counts the launches per (kernel, shape).
 """
 from __future__ import annotations
@@ -48,8 +49,11 @@ _SIGNATURES = {
     "cmt_conv3x3_bn_relu_f32": [_P] * 6 + [_I] * 7 + [_P],
     "cmt_conv3x3_tc_weight_map": [_P, _I, _I, _I, _P],
     "cmt_conv3x3_bn_relu_tc": [_P] * 6 + [_I] * 11 + [_P],
-    "cmt_osa_aggregate": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P] * 5
-    + [_I] * 3 + [_P],
+    "cmt_osa_aggregate_f32": [_I] + [_P] * 6 + [_I] * 6 + [_P, _I]
+    + [_P] * 4 + [_I] * 3 + [_P],
+    "cmt_osa_agg_tc_weight_map": [_P, _I, _I, _I, _P],
+    "cmt_osa_aggregate_tc": [_I] + [_P] * 6 + [_I] * 6 + [_P] * 5
+    + [_I] * 7 + [_P],
     # kernels 7 and 8 take a pointer to one argument block and the stream
     "cmt_flash_train_fwd": [_P, _P],
     "cmt_flash_train_bwd_dq": [_P, _P],

@@ -298,47 +298,6 @@ __global__ void __launch_bounds__(128 * WG + 32, WG == 1 ? 2 : 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up at run time in the libcuda the process
-// already loaded, so the library links no libcuda
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// a bf16 tensor map of `rank` dims (innermost first), 128-byte swizzle,
-// zeros outside the tensor
-static bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                     const cuuint64_t* dims, const cuuint64_t* strides,
-                     const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // the dynamic shared memory limit of one instantiation, raised once per
 // device (an attribute of the function in the current device's context)
 template <int BN, int WG, bool RESID>
@@ -410,7 +369,7 @@ extern "C" int cmt_conv3x3_tc_weight_map(const void* w, int cin_pad,
   const cuuint64_t strides[1] = {(cuuint64_t)9 * cin_pad * 2};
   const cuuint32_t box[2] = {CHUNK, (cuuint32_t)bn};
   CUtensorMap map;
-  if (!bf16_map(&map, w, 2, dims, strides, box))
+  if (!cmt_bf16_map(&map, w, 2, dims, strides, box))
     return (int)cudaErrorInvalidValue;
   memcpy(map_out, &map, sizeof(map));
   return (int)cudaSuccess;
@@ -445,7 +404,7 @@ extern "C" int cmt_conv3x3_bn_relu_tc(const void* x, const void* w_map,
                                    (cuuint64_t)wd * cin * 2,
                                    (cuuint64_t)h * wd * cin * 2};
   const cuuint32_t x_box[4] = {CHUNK, BOX_W, (cuuint32_t)(4 * wg), 1};
-  if (!bf16_map(&tm_x, x, 4, x_dims, x_strides, x_box))
+  if (!cmt_bf16_map(&tm_x, x, 4, x_dims, x_strides, x_box))
     return (int)cudaErrorInvalidValue;
 #define CMT_CONV_TC(BN)                                                     \
   case BN:                                                                  \

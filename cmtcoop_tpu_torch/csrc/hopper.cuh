@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only; nothing links to libcuda)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t cmt_smem_addr(const void* p) {
@@ -45,6 +46,12 @@ __device__ __forceinline__ void cmt_mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// named barrier `id` (1 to 15; 0 is __syncthreads) over `count` threads,
+// a multiple of 32: syncs a block's consumer warps without its producer
+__device__ __forceinline__ void cmt_named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- TMA tile loads (global -> shared), completion on an mbarrier ----
 __device__ __forceinline__ void cmt_tma_load_2d(uint32_t dst,
                                                 const CUtensorMap* map,
@@ -53,6 +60,16 @@ __device__ __forceinline__ void cmt_tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void cmt_tma_load_3d(uint32_t dst,
+                                                const CUtensorMap* map,
+                                                uint32_t bar, int c0, int c1,
+                                                int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void cmt_tma_load_4d(uint32_t dst,
@@ -95,7 +112,8 @@ __device__ __forceinline__ void cmt_fence_regs(float (&d)[R]) {
 
 // D (64 x N, float32, N/2 registers a thread) += A (64 x 16) B (16 x N),
 // bf16 operands by descriptor, both K-major. One specialisation per width
-// the conv kernel instantiates: PTX names every accumulator register.
+// the conv and aggregate kernels instantiate: PTX names every accumulator
+// register.
 template <int N>
 struct Wgmma;
 
@@ -267,3 +285,44 @@ struct Wgmma<256> {
   }
 };
 
+// ---- host: tensor maps ----
+typedef CUresult (*CmtEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up at run time in the libcuda the process
+// already loaded, so the library links no libcuda
+static CmtEncodeTiled cmt_encode_tiled() {
+  static CmtEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (CmtEncodeTiled)p;
+  }
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dims (innermost first, at most 4), 128-byte
+// swizzle, zeros outside the tensor
+static bool cmt_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  CmtEncodeTiled fn = cmt_encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}

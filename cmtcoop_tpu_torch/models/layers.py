@@ -7,13 +7,16 @@ JAX package's `dtype` does.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cmtcoop_tpu_torch.ops.conv_cf import (PackedConv3x3,
+from cmtcoop_tpu_torch.ops.conv_cf import (PackedAgg, PackedConv3x3,
                                            conv3x3_bn_relu_packed, fold_bn,
-                                           pack_conv3x3_weight)
+                                           pack_conv3x3_weight,
+                                           pack_osa_weight)
 
 
 class BatchNorm(nn.Module):
@@ -78,14 +81,22 @@ class BatchNorm(nn.Module):
         return (y * mask[..., None]).to(x.dtype)
 
 
+def _pack_key(dtype, *tensors) -> list:
+    """What a held pack is keyed by: the compute dtype, and each source
+    tensor's data pointer (which moving to another device changes) and
+    version counter (`load_state_dict` copies in place and so bumps it; an
+    inference tensor keeps none, so for one only a new pointer counts)."""
+    key = [dtype]
+    for t in tensors:
+        key += (t.data_ptr(), 0 if t.is_inference() else t._version)
+    return key
+
+
 class ConvPack:
     """The packed operands of a 3x3 conv + BatchNorm (`pack_conv3x3_weight`
     of the weight and the folded BN), held by its module for eval. Rebuilt
     when the compute dtype changes or when the weight or a BN tensor is
-    replaced, moved or changed in place (data pointer, which moving to
-    another device changes, and version counter; `load_state_dict` copies
-    in place and so bumps the versions). An inference tensor keeps no
-    version counter: for one, only a new data pointer rebuilds. This trades
+    replaced, moved or changed in place (`_pack_key`). This trades
     device memory (a bf16 copy of each 3x3 weight, ~50 MB for a VoVNet-99
     agent) for the cast, permute, copy and BN fold that each of the fusion
     frame's 162 conv launches would otherwise repeat: about a thousand
@@ -96,12 +107,33 @@ class ConvPack:
 
     def __call__(self, weight: torch.Tensor, bn: BatchNorm,
                  dtype) -> PackedConv3x3:
-        key = [dtype]
-        for t in (weight, bn.weight, bn.bias, bn.running_mean,
-                  bn.running_var):
-            key += (t.data_ptr(), 0 if t.is_inference() else t._version)
+        key = _pack_key(dtype, weight, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var)
         if key != self.key:
             self.packed = pack_conv3x3_weight(weight, *bn.fold(), dtype)
+            self.key = key
+        return self.packed
+
+
+class AggPack:
+    """The packed operands of an OSA aggregate (`pack_osa_weight` of the
+    1x1 concat conv's weight with its BN folded in, for the parts' channel
+    counts), held by its module for eval and rebuilt as `ConvPack`'s (the
+    channel counts join the key). It saves the fold, transpose, cast and
+    copy that each of the fusion frame's 32 aggregate launches would
+    otherwise repeat, and keeps the weight's TMA maps."""
+
+    def __init__(self):
+        self.key, self.packed = None, None
+
+    def __call__(self, weight: torch.Tensor, bn: BatchNorm,
+                 chans: Sequence[int], dtype) -> PackedAgg:
+        """weight (Cout, sum C, 1, 1), the torch layout of the 1x1 conv."""
+        key = _pack_key(dtype, weight, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var) + [tuple(chans)]
+        if key != self.key:
+            self.packed = pack_osa_weight(weight[:, :, 0, 0].t(), *bn.fold(),
+                                          chans, dtype)
             self.key = key
         return self.packed
 

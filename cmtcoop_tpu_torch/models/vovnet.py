@@ -5,7 +5,7 @@ cmtcoop_tpu/models/vovnet_cf.py).
 - The three stem convs (3x3, strides 2/1/2, torch padding) are plain
   `F.conv2d` + folded BN + ReLU, as they are XLA convs in the JAX package.
 - Each OSA block runs its 3x3 convs through kernel 4 (`conv3x3_bn_relu`)
-  and its aggregate through kernel 6 (`osa_aggregate`), whose float32
+  and its aggregate through kernel 6 (`osa_aggregate_packed`), whose float32
   spatial sums give the eSE attention, exactly as `_osa_cf` does; the
   identity is added after the eSE scale, for every block after a stage's
   first. eSE runs in every block, whatever the reference's SE flag says.
@@ -34,9 +34,10 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from cmtcoop_tpu_torch.models.layers import BatchNorm, Conv2d, ConvPack
+from cmtcoop_tpu_torch.models.layers import (AggPack, BatchNorm, Conv2d,
+                                             ConvPack)
 from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu_packed,
-                                           osa_aggregate)
+                                           osa_aggregate_packed)
 
 STAGE_SPECS: Dict[str, dict] = {
     "V-19-slim-eSE": dict(
@@ -103,8 +104,9 @@ class eSE(nn.Module):
 class OSAModule(nn.Module):
     """One OSA block, eval: `layer_per_block` 3x3 conv units (one launch of
     kernel 4 each, on operands packed once: `packs`), the aggregate over
-    [x, conv outputs] (one launch of kernel 6), eSE from the aggregate's
-    spatial sums, and the identity when `identity`."""
+    [x, conv outputs] (one launch of kernel 6, on operands packed once:
+    `agg_pack`), eSE from the aggregate's spatial sums, and the identity
+    when `identity`."""
 
     def __init__(self, cin: int, stage_ch: int, concat_ch: int,
                  layer_per_block: int, name: str, identity: bool):
@@ -118,6 +120,7 @@ class OSAModule(nn.Module):
         self.concat = nn.Sequential(OrderedDict(_conv_unit(
             f"{name}_concat", cin + layer_per_block * stage_ch, concat_ch,
             1)))
+        self.agg_pack = AggPack()
         self.ese = eSE(concat_ch)
 
     def _plain(self, x):
@@ -139,10 +142,9 @@ class OSAModule(nn.Module):
             for layer, pack in zip(self.layers, self.packs):
                 parts.append(conv3x3_bn_relu_packed(
                     parts[-1], pack(layer[0].weight, layer[1], x.dtype)))
-            scale, bias = self.concat[1].fold()
-            agg, gap = osa_aggregate(parts,
-                                     self.concat[0].weight[:, :, 0, 0].t(),
-                                     scale, bias)
+            agg, gap = osa_aggregate_packed(parts, self.agg_pack(
+                self.concat[0].weight, self.concat[1],
+                [p.shape[-1] for p in parts], x.dtype))
         # eSE from the spatial sums: mean, float32 fc, hard sigmoid
         fc = self.ese.fc
         s = gap / float(x.shape[1] * x.shape[2])

@@ -35,7 +35,8 @@ stage's host span (the Hungarian's share of the step is the host part of
 - `top_kernels_ms`: the device time of the busiest kernels by name,
   `top_kernel_families_ms` the same summed over each kernel's
   instantiations (the name up to its template or argument list: kernel 4
-  is `conv_tc::conv3x3_tc_kernel` in bf16), and `train_kernels_ms` that
+  is `conv_tc::conv3x3_tc_kernel` in bf16, kernel 6
+  `osa_tc::osa_agg_tc_kernel`), and `train_kernels_ms` that
   of kernels 7 and 8 (`flash_train_*`).
 
 It prints the summary as JSON and writes it, with the Chrome trace, to

@@ -31,12 +31,16 @@ from cmtcoop_tpu_torch.ops.attention import (
     NEG_INF, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_kvmask, flash_attention_kvmask_reference,
     flash_attention_packed, flash_attention_packed_reference)
+from cmtcoop_tpu_torch.models.vovnet import OSAModule
 from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                            conv3x3_bn_relu_packed,
                                            conv3x3_bn_relu_reference,
-                                           conv3x3_plan, osa_aggregate,
+                                           conv3x3_plan, osa_agg_plan,
+                                           osa_agg_plans, osa_aggregate,
+                                           osa_aggregate_packed,
                                            osa_aggregate_reference,
-                                           pack_conv3x3_weight, sm_count)
+                                           pack_conv3x3_weight,
+                                           pack_osa_weight, sm_count)
 from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, sorted_lookup,
                                                  sorted_lookup_reference)
 from cmtcoop_tpu_torch.ops.pillar_fused import (fused_pillar_conv,
@@ -334,7 +338,8 @@ def test_profile_summary_train_stages():
 def test_profile_summary_sums_kernel_families():
     """Each kernel's instantiations summed under its name without `void`,
     template arguments or parameters (kernel 4's bf16 instantiations are
-    one `conv_tc::conv3x3_tc_kernel`)."""
+    one `conv_tc::conv3x3_tc_kernel`, kernel 6's one
+    `osa_tc::osa_agg_tc_kernel` beside its gap reduction)."""
     trace = {"traceEvents": [
         dict(ph="X", cat="user_annotation", name="frame", ts=0, dur=100)] + [
         dict(ph="X", cat="kernel", name=name, ts=ts, dur=dur, args={})
@@ -343,11 +348,21 @@ def test_profile_summary_sums_kernel_families():
              0, 10),
             ("void conv_tc::conv3x3_tc_kernel<256, 2, true>(CUtensorMap_st)",
              10, 20),
-            ("void osa_agg_kernel<__nv_bfloat16>(OsaParts)", 30, 25),
-            ("Memset (Device)", 60, 5))]}
+            ("void osa_tc::osa_agg_tc_kernel<192>(osa_tc::Maps, OsaChans, "
+             "float const*, __nv_bfloat16*, float*, int, int, int, int)",
+             30, 25),
+            ("void osa_tc::osa_agg_tc_kernel<64>(osa_tc::Maps, OsaChans, "
+             "float const*, __nv_bfloat16*, float*, int, int, int, int)",
+             55, 4),
+            ("void osa_tc::osa_agg_tc_kernel<128>(osa_tc::Maps, OsaChans, "
+             "float const*, __nv_bfloat16*, float*, int, int, int, int)",
+             59, 1),
+            ("osa_gap_kernel(float const*, float*, int, int, int)", 60, 1),
+            ("Memset (Device)", 61, 5))]}
     got = profile_path.summarize(trace, 1)
     assert got["top_kernel_families_ms"] == pytest.approx(
-        {"conv_tc::conv3x3_tc_kernel": 0.03, "osa_agg_kernel": 0.025,
+        {"conv_tc::conv3x3_tc_kernel": 0.03,
+         "osa_tc::osa_agg_tc_kernel": 0.03, "osa_gap_kernel": 0.001,
          "Memset": 0.005})
     assert profile_path.kernel_family("at::native::f<8>(int)") == \
         "at::native::f"
@@ -612,31 +627,179 @@ def test_bf16_conv_refuses_cin_12():
                   conv3x3_bn_relu_reference(x.float(), *rest), 1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("v,h,w,chans,cout", [
-    (3, 20, 50, (256, 80, 80, 80, 80, 80), 200),
-    (2, 7, 13, (24, 16), 40)])
-def test_osa_aggregate_kernel_matches_plain(dtype, tol, v, h, w, chans,
-                                            cout):
-    """Kernel 6: ragged pixel tiles inside each view (H*W % 128 != 0), Cout
-    not a multiple of 128, 6 and 2 parts; agg and the float32 gap, each
-    against max |plain|."""
-    dev = cuda_device()
+def _agg_inputs(dev, dtype, v, h, w, chans, cout, bias_shift=0.0):
     g = torch.Generator(device=dev).manual_seed(0)
     parts = [torch.randn(v, h, w, c, generator=g, device=dev).to(dtype)
              for c in chans]
     wt = torch.randn(sum(chans), cout, generator=g, device=dev) \
         / sum(chans) ** 0.5
     s = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
-    bb = 0.1 * torch.randn(cout, generator=g, device=dev)
+    bb = 0.1 * torch.randn(cout, generator=g, device=dev) + bias_shift
+    return parts, wt, s, bb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("v,h,w,chans,cout", [
+    (3, 20, 50, (256, 80, 80, 80, 80, 80), 200),
+    (2, 7, 13, (24, 16), 40),
+    (1, 20, 50, (1024,) + (224,) * 5, 1024),
+    (3, 80, 200, (256,) + (160,) * 5, 512),
+    (2, 9, 23, (160, 224, 8), 264)])
+def test_osa_aggregate_kernel_matches_plain(dtype, tol, v, h, w, chans,
+                                            cout):
+    """Kernel 6: ragged pixel tiles inside each view (H*W % 128 != 0), Cout
+    not a multiple of 128, 6, 3 and 2 parts; parts of 160 and 224 channels
+    (half a 64-channel chunk at their end) and of 8; the stage-5 V1 shape
+    (its plan's small tiles) with Cout 1024 (four or more column tiles);
+    agg and the float32 gap, each against max |plain|; one launch a call,
+    counted at its shape."""
+    dev = cuda_device()
+    parts, wt, s, bb = _agg_inputs(dev, dtype, v, h, w, chans, cout)
     before = _build.launch_counts["osa_aggregate"]
+    _build.launch_shapes.clear()
     agg, gap = osa_aggregate(parts, wt, s, bb)
     ref_agg, ref_gap = osa_aggregate_reference(parts, wt, s, bb)
     assert _build.launch_counts["osa_aggregate"] == before + 1
+    assert _build.launch_shapes == {
+        ("osa_aggregate", (v, h, w) + chans + (cout,)): 1}
     assert agg.dtype == dtype and gap.dtype == torch.float32
     _assert_rel(agg, ref_agg, tol)
     _assert_rel(gap, ref_gap, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("v,h,w", [(3, 9, 15), (3, 20, 50), (2, 33, 61)])
+def test_osa_aggregate_ragged_views_with_positive_bias(dtype, tol, v, h, w):
+    """A bias of about +1 makes a zero-filled pixel row past a view's end
+    relu(bias) > 0: were it stored, it would overwrite the next view's first
+    pixels, and were it summed, the gap would grow. H*W is no multiple of
+    64 or 128, so every view ends inside a tile; the views differ, so a
+    row of the next view read into a tile would show too."""
+    dev = cuda_device()
+    chans, cout = (64, 160, 224), 256
+    parts, wt, s, bb = _agg_inputs(dev, dtype, v, h, w, chans, cout, 1.0)
+    assert bool((bb > 0).all())
+    parts = [p * torch.arange(1, v + 1, device=dev).view(v, 1, 1, 1).to(
+        dtype) for p in parts]
+    agg, gap = osa_aggregate(parts, wt, s, bb)
+    ref_agg, ref_gap = osa_aggregate_reference(parts, wt, s, bb)
+    _assert_rel(agg, ref_agg, tol)
+    for i in range(v):
+        _assert_rel(gap[i], ref_gap[i], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 160, 400, (128,) * 6, 256),
+                                   (1, 20, 50, (1024,) + (224,) * 5, 1024)])
+def test_osa_aggregate_gap_is_deterministic(shape):
+    """Two calls give bit-equal agg and gap: the partial rows are summed in
+    a fixed order, with no atomics."""
+    dev = cuda_device()
+    v, h, w, chans, cout = shape
+    parts, wt, s, bb = _agg_inputs(dev, torch.bfloat16, v, h, w, chans, cout)
+    packed = pack_osa_weight(wt, s, bb, chans, torch.bfloat16)
+    a0, g0 = osa_aggregate_packed(parts, packed)
+    a1, g1 = osa_aggregate_packed(parts, packed)
+    assert torch.equal(a0, a1) and torch.equal(g0, g1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,h,w,chans,cout", [
+    (3, 20, 50, (1024,) + (224,) * 5, 1024), (2, 9, 23, (160, 224, 8), 264)])
+def test_every_aggregate_plan_gives_the_same_result(v, h, w, chans, cout):
+    """Each tile the bf16 kernel takes (256, 192, 128 or 64 columns)
+    agrees with the plain version, and the
+    weight's maps of each column width are kept apart."""
+    dev = cuda_device()
+    parts, wt, s, bb = _agg_inputs(dev, torch.bfloat16, v, h, w, chans,
+                                   cout, 0.5)
+    ref_agg, ref_gap = osa_aggregate_reference(parts, wt, s, bb)
+    packed = pack_osa_weight(wt, s, bb, chans, torch.bfloat16)
+    plans = osa_agg_plans(v, h * w, chans, cout)
+    assert len(plans) == 4
+    for plan in plans:
+        agg, gap = osa_aggregate_packed(parts, packed, plan)
+        _assert_rel(agg, ref_agg, 2e-2)
+        _assert_rel(gap, ref_gap, 2e-2)
+    assert set(packed.tc_maps) == {64, 128, 192, 256}
+
+
+@pytest.mark.cuda
+def test_bf16_aggregate_keeps_its_weight_map_and_checks_the_plan():
+    """The packed weight's TMA map is encoded at the first bf16 launch and
+    kept; the C entry point refuses a plan whose tiles do not cover the
+    views or Cout exactly, or a kpad that the parts do not fill."""
+    dev = cuda_device()
+    v, h, w, chans, cout = 3, 40, 100, (768,) + (192,) * 5, 768
+    parts, wt, s, bb = _agg_inputs(dev, torch.bfloat16, v, h, w, chans, cout)
+    packed = pack_osa_weight(wt, s, bb, chans, torch.bfloat16)
+    assert not packed.tc_maps
+    agg, gap = osa_aggregate_packed(parts, packed)
+    plan = osa_agg_plan(v, h * w, chans, cout, sm_count(dev))
+    first = packed.tc_maps[plan.bn]
+    a1, g1 = osa_aggregate_packed(parts, packed)
+    assert packed.tc_maps == {plan.bn: first}
+    assert torch.equal(a1, agg) and torch.equal(g1, gap)
+    out, gp = torch.empty_like(agg), torch.empty_like(gap)
+    partial = torch.empty(v, plan.tiles + 1, cout, device=dev)
+    for tiles, col_tiles, kpad in ((plan.tiles + 1, plan.col_tiles,
+                                    plan.kpad),
+                                   (plan.tiles, plan.col_tiles - 1,
+                                    plan.kpad),
+                                   (plan.tiles, plan.col_tiles,
+                                    plan.kpad - 64)):
+        rc = _build.lib().cmt_osa_aggregate_tc(
+            len(parts), *[p.data_ptr() for p in parts], *chans, first,
+            packed.bias.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            gp.data_ptr(), v, h * w, cout, kpad, plan.bn, tiles, col_tiles,
+            _build.stream_ptr(dev))
+        assert rc != 0
+
+
+@pytest.mark.cuda
+def test_bf16_aggregate_refuses_channels_tma_cannot_stride():
+    """A part of 12 channels (no 16-byte stride) raises before any launch
+    in bf16; float32 takes the CUDA-core kernel, which has no such
+    limit."""
+    dev = cuda_device()
+    parts, wt, s, bb = _agg_inputs(dev, torch.bfloat16, 2, 5, 7, (16, 12),
+                                   24)
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        osa_aggregate(parts, wt, s, bb)
+    assert _build.launch_counts == before
+    parts = [p.float() for p in parts]
+    agg, gap = osa_aggregate(parts, wt, s, bb)
+    ref_agg, ref_gap = osa_aggregate_reference(parts, wt, s, bb)
+    _assert_rel(agg, ref_agg, 1e-4)
+    _assert_rel(gap, ref_gap, 1e-4)
+
+
+@pytest.mark.cuda
+def test_osa_module_on_the_card_holds_its_aggregate_pack():
+    """An eval OSA block on the card (float32): the aggregate launches on
+    the pack its module holds, and the block agrees with itself on the
+    CPU."""
+    dev = cuda_device()
+    mod = OSAModule(64, 160, 256, 5, "OSA3_1", identity=False).eval()
+    g = torch.Generator().manual_seed(0)
+    mod.load_state_dict({k: torch.rand(t.shape, generator=g) * 0.2 + 0.9
+                         for k, t in mod.state_dict().items()})
+    x = torch.randn(2, 12, 20, 64, generator=g)
+    with torch.inference_mode():
+        ref = mod(x)
+        mod.to(dev)
+        before = _build.launch_counts["osa_aggregate"]
+        y0 = mod(x.to(dev))
+        first = mod.agg_pack.packed
+        y1 = mod(x.to(dev))
+    assert mod.agg_pack.packed is first
+    assert first.weight.dtype == torch.float32
+    assert _build.launch_counts["osa_aggregate"] == before + 2
+    assert torch.equal(y0, y1)
+    _assert_rel(y0.cpu(), ref, 1e-4)
 
 
 @pytest.mark.cuda
