@@ -14,14 +14,17 @@ Phases, each raising on failure (the script then exits non-zero):
      VoVNet stage shapes and the head, on operands packed once as the
      eval modules hold them, and its wrappers' host cost per launch;
      kernel 6 likewise at all 14 of the fusion path's OSA aggregate shapes;
-     the train step's
-     cross-attention, 1540 queries x 44400 keys x 8 heads x 32 with a
-     quarter of the keys at NEG_INF, dropout 0.1 and 0), in bfloat16 (and
-     float32 at one or two cases a kernel), with error, tolerance and time,
-     beside the least time the
-     card could take for the same work (bytes over 3.35 TB/s or bf16
-     operations over 989 TFLOP/s, H100 SXM) and one PyTorch library call
-     that computes the same function, where there is one; the sorted lookup
+     kernel 3 at 900 queries x the fusion path's 44400 and 36400 and the
+     LiDAR path's 32400 keys, two calls bit-equal; kernels 7 and 8 at the
+     train step's cross-attentions, 1540 queries x 44400 and 36400 keys at
+     dropout 0.1 and x 44400 at 0, dq and d(k_bias) bit-equal across two
+     calls; all with a quarter of the keys at NEG_INF), in bfloat16 (and
+     float32 at one or two cases a kernel), with error, tolerance and
+     time, beside the least time the card could take for the same work
+     (bytes over 3.35 TB/s, bf16 operations over 989 TFLOP/s, or for the
+     flash kernels one exponential a score over 3.9 T/s, H100 SXM) and one
+     PyTorch library call that computes the same function, where there is
+     one; the sorted lookup
      (kernel 9) at the vehicle cloud's gather stage-0 submanifold map (its
      voxel ids as keys, 27 tap columns as queries) and its level-0 pillar
      map (9 taps), and the row copy (kernel 10) at (40960, 768) in bfloat16
@@ -38,9 +41,10 @@ Phases, each raising on failure (the script then exits non-zero):
      outputs) and decoder outputs, the launch count of every kernel of the
      path above zero and of every other kernel zero; on the fusion path
      memories of 36400 (vehicle) and 44400 (infrastructure) tokens, and
-     kernel 4's and kernel 6's launches counted per shape, which weight
-     phase 3's kernel, library (cuDNN; cat + bf16 matmul) and bound times
-     into sums per fusion frame. Between
+     kernel 3's, 4's and 6's launches counted per shape, which weight
+     phase 3's kernel, library (SDPA; cuDNN; cat + bf16 matmul) and bound
+     times into sums per fusion frame (kernel 3's per LiDAR frame too).
+     Between
      the gather and the fusion paths, a float32 check at full width: the
      gather encoder against the pillar encoder on the same weights and the
      vehicle cloud (they compute the same function), max |gather - pillar|
@@ -52,7 +56,8 @@ Phases, each raising on failure (the script then exits non-zero):
      gradient for every parameter, VoVNet's running statistics unchanged
      and SECOND's and the pillar encoder's moved, every parameter moved,
      zero cap drops, peak memory, kernels 7 and 8 launched and kernels 1 to
-     6 not;
+     6 not, and their launches per shape weighting phase 3's times into
+     sums per train step;
   6. slice parity: the small LiDAR (pillar and gather encoders) and fusion
      detectors of the CPU parity tests (cmtcoop_tpu_torch/configs/presets.py
      `SMALL_COOP_*`, `SMALL_GATHER_EXTRACTOR`, `SMALL_FUSION_*`), the GPU
@@ -94,9 +99,17 @@ GATHER_TOL = 1e-3
 # relative, each gradient to TRAIN_TOL of its max |CPU grad| + 1e-6 (the
 # gather convs' scatter-add backward sums in another order on the card)
 TRAIN_TOL = 2e-3
-# H100 SXM published peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
-ATTN_Q, ATTN_K = 1540, 44400  # the train step's cross-attention (infra)
+# H100 SXM published peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s,
+# and exponentials/s on the special-function units (the published rate of
+# 16 a clock an SM: 132 SMs at 1.83 GHz); one exponential a softmax score
+# is the flash kernels' other floor at Dh 32
+PEAK_BYTES, PEAK_FLOPS, PEAK_EXP = 3.35e12, 989e12, 3.9e12
+# the decoder's cross-attention memories: (keys, the path whose launches
+# weight the case); 900 queries in eval, 1540 (with DN) in training
+EVAL_ATTN = ((44400, "fusion"), (36400, "fusion"), (32400, "lidar"))
+TRAIN_ATTN = ((44400, 0.1, "train"), (36400, 0.1, "train"),
+              (44400, 0.0, None))
+ATTN_Q = 1540
 # kernel 4's shapes on the fusion path, (views, H, W, Cin, Cout, where):
 # VoVNet-99's OSA 3x3 convs per stage (1 vehicle and 3 infrastructure views
 # at 640x1600) and the head's shared_conv. Phase 3 times each; phase 4
@@ -154,6 +167,30 @@ SOURCES = {
 }
 
 
+# what runs each kernel's bf16 cases on the card (its `impl` in the
+# kernels line)
+IMPLS = {
+    "pillar_conv_kb9": "CUDA cores",
+    "pillar_conv_kb1": "CUDA cores",
+    "flash_attention_packed": "bf16 Dh 32: tensor cores, wgmma + TMA "
+                              "(flash_tc::packed_tc_kernel, split-KV "
+                              "merge); float32: CUDA cores",
+    "conv3x3_bn_relu": "bf16: tensor cores, wgmma + TMA; float32: CUDA "
+                       "cores",
+    "conv3x3_bn_relu_resid": "bf16: tensor cores, wgmma + TMA; float32: "
+                             "CUDA cores",
+    "osa_aggregate": "bf16: tensor cores, wgmma + TMA; float32: CUDA cores",
+    "flash_train_fwd": "CUDA cores",
+    "flash_train_bwd_dq": "bf16 Dh 32: tensor cores, wgmma + TMA "
+                          "(bwd_tc::dq_kernel, split keys); float32: CUDA "
+                          "cores",
+    "flash_train_bwd_dkv": "bf16 Dh 32: tensor cores, wgmma + TMA "
+                           "(bwd_tc::dkv_kernel); float32: CUDA cores",
+    "sorted_lookup": "CUDA cores",
+    "rows_copy": "CUDA cores (16-byte vector copies)",
+}
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -197,10 +234,12 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(n_bytes, flops):
-    """(ms, what bounds it): the larger of the bytes over the memory rate
-    and the bf16 operations over the tensor-core rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+def bound(n_bytes, flops, exps=0.0):
+    """(ms, what bounds it): the largest of the bytes over the memory rate,
+    the bf16 operations over the tensor-core rate and the exponentials over
+    the special-function rate (the last two are operations)."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_FLOPS, exps / PEAK_EXP)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -216,8 +255,9 @@ def compare(name, shape_note, kernel, plain, make_inputs, results,
     `info` merged in): kernel and plain ms, the time of the call
     `library(*args, **kw)` returns (one PyTorch call computing the same
     function; None when there is none) and the bound from `work(*args,
-    **kw)` -> (bytes, flops). The kernel's first case also gives its
-    top-level numbers."""
+    **kw)` -> (bytes, flops) or (bytes, flops, exponentials), the latter
+    with both operation floors (`bound_tc_ms`, `bound_exp_ms`). The
+    kernel's first case also gives its top-level numbers."""
     for dtype in dtypes:
         dname = str(dtype).split(".")[-1]
         args, kw = make_inputs(dtype)
@@ -261,10 +301,19 @@ def compare(name, shape_note, kernel, plain, make_inputs, results,
         case = dict(note=shape_note, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                     library_ms=None if library is None
                     else cuda_ms(library(*args, **kw)), **(info or {}))
-        case["bound_ms"], case["bound_by"] = bound(*work(*args, **kw))
+        w = work(*args, **kw)
+        case["bound_ms"], case["bound_by"] = bound(*w)
+        if len(w) == 3:
+            case["bound_tc_ms"] = w[1] / PEAK_FLOPS * 1e3
+            case["bound_exp_ms"] = w[2] / PEAK_EXP * 1e3
+            case["bound_ops"] = ("exponentials" if case["bound_exp_ms"]
+                                 >= case["bound_tc_ms"] else "tensor cores")
         record(results, name, case)
+        floors = ("" if len(w) < 3 else
+                  f"; tensor cores {case['bound_tc_ms']:.4f}, exponentials "
+                  f"{case['bound_exp_ms']:.4f}")
         log(f"kernel {name} [{shape_note}] bfloat16: bound "
-            f"{case['bound_ms']:.4f} ms ({case['bound_by']}), library "
+            f"{case['bound_ms']:.4f} ms ({case['bound_by']}{floors}), library "
             + ("none" if case["library_ms"] is None
                else f"{case['library_ms']:.4f} ms"))
 
@@ -275,8 +324,10 @@ def record(results, name, case):
     rec = results.setdefault(name, dict(max_abs_err=0.0, cases=[]))
     rec["max_abs_err"] = max(rec["max_abs_err"], case["max_abs_err"])
     rec["cases"].append(case)
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
-        rec.setdefault(k, case[k])
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "bound_ops"):
+        if k in case:
+            rec.setdefault(k, case[k])
 
 
 def levels_of(batch, agent, ext):
@@ -392,25 +443,43 @@ def kernel_phases(lv, results, dev):
                                  occ_out=pu.occ_downsample(l3["occ"], ident,
                                                            3, 2, 0)), False)
 
-    # q scaled so the softmax over 32400 keys peaks (logit std 4), a
-    # quarter of the keys masked with NEG_INF as padded keys are
-    q, k, v = randn(1, 900, 256, scale=4.0), randn(1, 32400, 256), randn(
-        1, 32400, 256)
-    masked = torch.rand(1, 32400, generator=gen, device=dev) < 0.25
-    kbias = torch.where(masked, NEG_INF, 0.0)
-
+    # kernel 3 at the decoder's memories (the fusion path's two, the LiDAR
+    # and gather paths' one): q scaled so the softmax peaks (logit std 4), a
+    # quarter of the keys masked with NEG_INF as padded keys are; float32
+    # (the CUDA-core route) at the first. Two calls must give the same
+    # bits.
     def heads(x, h):
         return x.view(x.shape[0], -1, h, x.shape[2] // h).transpose(1, 2)
 
-    compare("flash_attention_packed", "q900 k32400 8x32, 1/4 keys masked",
-            flash_attention_packed, flash_attention_packed_reference,
-            lambda dt: ((q.to(dt), k.to(dt), v.to(dt), kbias, 8), {}),
-            results,
-            library=lambda q_, k_, v_, kb, h: lambda: sdpa(
-                heads(q_, h), heads(k_, h), heads(v_, h), kb),
-            work=lambda q_, k_, v_, kb, h: (
-                nbytes(q_, k_, v_, kb) + nbytes(q_),
-                4.0 * q_.shape[1] * k_.shape[1] * q_.shape[2]))
+    for i, (nk, path) in enumerate(EVAL_ATTN):
+        q, k, v = (randn(1, n, 256, scale=s) for n, s in ((900, 4.0),
+                                                          (nk, 1.0),
+                                                          (nk, 1.0)))
+        masked = torch.rand(1, nk, generator=gen, device=dev) < 0.25
+        kbias = torch.where(masked, NEG_INF, 0.0)
+        compare("flash_attention_packed",
+                f"q900 k{nk} 8x32, 1/4 keys masked ({path})",
+                flash_attention_packed, flash_attention_packed_reference,
+                lambda dt: ((q.to(dt), k.to(dt), v.to(dt), kbias, 8), {}),
+                results,
+                library=lambda q_, k_, v_, kb, h: lambda: sdpa(
+                    heads(q_, h), heads(k_, h), heads(v_, h), kb),
+                work=lambda q_, k_, v_, kb, h: (
+                    nbytes(q_, k_, v_, kb) + nbytes(q_),
+                    4.0 * q_.shape[1] * k_.shape[1] * q_.shape[2],
+                    float(q_.shape[1] * k_.shape[1] * h)),
+                dtypes=((torch.bfloat16, torch.float32) if i == 0
+                        else (torch.bfloat16,)),
+                info=dict(shape=[900, nk, 8, 32], path=path))
+        qb, kb16, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        first = flash_attention_packed(qb, kb16, vb, kbias, 8)
+        if not torch.equal(first, flash_attention_packed(qb, kb16, vb,
+                                                         kbias, 8)):
+            raise AssertionError(f"flash_attention_packed k{nk}: two calls "
+                                 "differ")
+        log(f"kernel flash_attention_packed [q900 k{nk}] bfloat16: two calls "
+            "bit-equal")
+        del q, k, v, qb, kb16, vb, first
 
     # kernels 4 and 5 are timed as the main path calls them: on operands
     # packed once (`conv3x3_bn_relu_packed`); the plain version takes the
@@ -548,32 +617,32 @@ def kernel_phases(lv, results, dev):
 
 def train_kernel_phases(results, dev):
     """Kernels 7 and 8 against their plain versions at the train step's
-    cross-attention shape, dropout 0.1 (the path's) then 0; the backward
-    takes the plain forward's (out, m, l). Outside inference mode: the
-    library call for kernel 8 is the autograd backward of
-    scaled_dot_product_attention."""
+    cross-attentions (`TRAIN_ATTN`: both memories at the path's dropout
+    0.1, the infrastructure one at 0 too, so the dropout hash's cost shows;
+    float32 at the first); the backward takes the plain forward's (out, m,
+    l), and its dq and d(k_bias) must be bit-equal across two calls.
+    Outside inference mode: the library call for kernel 8 is the autograd
+    backward of scaled_dot_product_attention."""
     from cmtcoop_tpu_torch.ops import attention as ta
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     b, h, dh, seed = 1, 8, 32, SEED + 7
-    q, k, v, dout = (torch.randn(b, n, h * dh, generator=gen, device=dev) * s
-                     for n, s in ((ATTN_Q, 4.0), (ATTN_K, 1.0), (ATTN_K, 1.0),
-                                  (ATTN_Q, 1.0)))
-    masked = torch.rand(b, ATTN_K, generator=gen, device=dev) < 0.25
-    kb = torch.where(masked, ta.NEG_INF, 0.0)
 
     def views(dt, *xs):
         return [x.to(dt).view(b, -1, h, dh).transpose(1, 2) for x in xs]
 
     def fwd_work(q_, k_, v_, kb_, *rest, **kw):
-        return (nbytes(q_, k_, v_, kb_) + nbytes(q_) + 8 * b * h * ATTN_Q,
-                4.0 * b * h * ATTN_Q * ATTN_K * dh)
+        nq, nk = q_.shape[2], k_.shape[2]
+        return (nbytes(q_, k_, v_, kb_) + nbytes(q_) + 8 * b * h * nq,
+                4.0 * b * h * nq * nk * dh, float(b * h * nq * nk))
 
     def bwd_work(passes, out_bytes):
         def work(q_, k_, v_, kb_, out, m, l, do, *rest):
             # m and l in, delta (the size of m) in, the outputs written
+            nq, nk = q_.shape[2], k_.shape[2]
             return (nbytes(q_, k_, v_, kb_, m, l, do) + nbytes(m)
                     + out_bytes(q_, k_),
-                    passes * 2.0 * b * h * ATTN_Q * ATTN_K * dh)
+                    passes * 2.0 * b * h * nq * nk * dh,
+                    float(b * h * nq * nk))
         return work
 
     def sdpa_backward(q_, k_, v_, kb_, out, m, l, do, rate, seed_):
@@ -584,15 +653,23 @@ def train_kernel_phases(results, dev):
             o = sdpa(*leaves, kb_, rate)
         return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
-    for rate in (0.1, 0.0):
-        note = (f"q{ATTN_Q} k{ATTN_K} 8x32, 1/4 keys masked, dropout "
-                f"{rate:g}")
+    for i, (nk, rate, path) in enumerate(TRAIN_ATTN):
+        q, k, v, dout = (
+            torch.randn(b, n, h * dh, generator=gen, device=dev) * s
+            for n, s in ((ATTN_Q, 4.0), (nk, 1.0), (nk, 1.0), (ATTN_Q, 1.0)))
+        masked = torch.rand(b, nk, generator=gen, device=dev) < 0.25
+        kb = torch.where(masked, ta.NEG_INF, 0.0)
+        note = f"q{ATTN_Q} k{nk} 8x32, 1/4 keys masked, dropout {rate:g}"
+        info = dict(shape=[ATTN_Q, nk, h, dh], rate=rate, path=path)
+        dtypes = ((torch.bfloat16, torch.float32) if i == 0
+                  else (torch.bfloat16,))
         compare("flash_train_fwd", note + " (outputs 1, 2 = m, l)",
                 ta.flash_attention_kvmask,
                 ta.flash_attention_kvmask_reference,
                 lambda dt, r=rate: ((*views(dt, q, k, v), kb, True, r, seed),
                                     {}),
-                results, exact_side=False, work=fwd_work,
+                results, exact_side=False, work=fwd_work, dtypes=dtypes,
+                info=info,
                 library=lambda q_, k_, v_, kb_, st, r, sd: lambda: sdpa(
                     q_, k_, v_, kb_, r))
 
@@ -611,17 +688,28 @@ def train_kernel_phases(results, dev):
         compare("flash_train_bwd_dq", note,
                 lambda q_, *a: ta._bwd_dq(prepared["block"][0], q_),
                 lambda *a: ta.flash_attention_bwd_reference(*a)[0],
-                bwd_inputs, results, exact_side=False,
-                work=bwd_work(3, lambda q_, k_: nbytes(q_)),
+                bwd_inputs, results, exact_side=False, dtypes=dtypes,
+                info=info, work=bwd_work(3, lambda q_, k_: nbytes(q_)),
                 library=sdpa_backward)
         compare("flash_train_bwd_dkv", note + " (outputs dk, dv, dk_bias)",
                 lambda q_, k_, v_, kb_, *a: ta._bwd_dkv(prepared["block"][0],
                                                         k_, kb_),
                 lambda *a: ta.flash_attention_bwd_reference(*a)[1:],
-                bwd_inputs, results, exact_side=False,
-                work=bwd_work(4, lambda q_, k_: 2 * nbytes(k_)
-                              + 4 * b * h * ATTN_K),
+                bwd_inputs, results, exact_side=False, dtypes=dtypes,
+                info=info, work=bwd_work(4, lambda q_, k_: 2 * nbytes(k_)
+                                         + 4 * b * h * k_.shape[2]),
                 library=sdpa_backward)
+        # dq and d(k_bias) twice on one bf16 block (`args` keeps the
+        # tensors it points to alive)
+        args, _ = bwd_inputs(torch.bfloat16)
+        a, qv, kv = prepared["block"][0], args[0], args[1]
+        dq0, dkb0 = ta._bwd_dq(a, qv), ta._bwd_dkv(a, kv, kb)[2]
+        if not (torch.equal(dq0, ta._bwd_dq(a, qv))
+                and torch.equal(dkb0, ta._bwd_dkv(a, kv, kb)[2])):
+            raise AssertionError(f"flash_train_bwd {note}: two calls differ")
+        log(f"kernel flash_train_bwd [{note}] bfloat16: dq and d(k_bias) "
+            "bit-equal across two calls")
+        del q, k, v, dout, prepared, args, a, dq0, dkb0
         torch.cuda.empty_cache()
 
 
@@ -850,27 +938,31 @@ def run_path(preset, model, batch):
     return launches, shapes
 
 
-def per_fusion_frame(results, shapes, name, library):
-    """Kernel `name` per fusion frame: phase 3's times at each shape
-    weighted by the launches the fusion path's timed frames made at it
-    (`shapes`, (kernel, shape) -> launches over N_FRAMES frames). Raises
-    unless the path launched at exactly the shapes phase 3 timed."""
-    cases = results[name]["cases"]
+def per_run(results, shapes, name, library, unit, path=None):
+    """Kernel `name` per frame or step of one path's run (`unit`, e.g.
+    "fusion_frame"): phase 3's times at each shape weighted by the launches
+    the run's N_FRAMES timed frames or steps made at it (`shapes`, (kernel,
+    shape) -> launches), over the cases timed for that path (a case's
+    "path" equal to `path`; None takes every case). Raises unless the run
+    launched at exactly those cases' shapes."""
+    cases = [c for c in results[name]["cases"]
+             if path is None or c.get("path") == path]
     launched = {shape: n for (k, shape), n in shapes.items() if k == name}
     timed = {tuple(c["shape"]) for c in cases}
-    if set(launched) != timed or any(n % N_FRAMES for n in launched.values()):
-        raise AssertionError(f"{name}'s fusion-path shapes {launched} are "
-                             f"not the {len(timed)} shapes phase 3 timed")
+    if (set(launched) != timed or len(timed) != len(cases)
+            or any(n % N_FRAMES for n in launched.values())):
+        raise AssertionError(f"{name}'s {unit} shapes {launched} are not "
+                             f"the {len(timed)} shapes phase 3 timed")
+    key = "launches_per_" + unit
     for c in cases:
-        c["launches_per_frame"] = launched[tuple(c["shape"])] // N_FRAMES
-    sums = {k: sum(c[k] * c["launches_per_frame"] for c in cases)
+        c[key] = launched[tuple(c["shape"])] // N_FRAMES
+    sums = {k: sum(c[k] * c[key] for c in cases)
             for k in ("ms", "library_ms", "bound_ms")}
-    results[name]["per_fusion_frame_ms"] = sums
-    log(f"kernel {name} per fusion frame ("
-        f"{sum(c['launches_per_frame'] for c in cases)} launches at "
-        f"{len(cases)} shapes, counted in the fusion path's run): kernel "
-        f"{sums['ms']:.3f} ms, {library} {sums['library_ms']:.3f} ms, bound "
-        f"{sums['bound_ms']:.3f} ms")
+    results[name][f"per_{unit}_ms"] = sums
+    log(f"kernel {name} per {unit.replace('_', ' ')} ("
+        f"{sum(c[key] for c in cases)} launches at {len(cases)} shapes, "
+        f"counted in the path's run): kernel {sums['ms']:.3f} ms, {library} "
+        f"{sums['library_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms")
 
 
 def slice_parity(name, model, batch, kernels, dev):
@@ -900,7 +992,7 @@ def slice_parity(name, model, batch, kernels, dev):
 def run_train(dev):
     """Phase 5: the full-width train step, warm-up plus N_FRAMES timed
     steps, and the checks of the module docstring. Returns the launch
-    counts of the timed steps."""
+    counts of the timed steps and their launches per (kernel, shape)."""
     from cmtcoop_tpu_torch import _build, main_path
     from cmtcoop_tpu_torch.models import cmt_loss
     model, batch, opt, step = main_path.build_train_path(dev)
@@ -933,6 +1025,7 @@ def run_train(dev):
             times.append((time.perf_counter() - t0) * 1e3)
             metrics.append({k: float(v) for k, v in m.items()})
         launches = dict(_build.launch_counts)
+        shapes = dict(_build.launch_shapes)
     finally:
         cmt_loss.solve_lap = solve
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -968,7 +1061,7 @@ def run_train(dev):
     for i, m in enumerate(metrics):
         log(f"train step {i + 1} metrics: " + json.dumps(
             {k: round(v, 6) for k, v in m.items()}))
-    return launches
+    return launches, shapes
 
 
 def train_parity(dev):
@@ -1077,8 +1170,11 @@ def main():
     train_kernel_phases(results, dev)
 
     # 4. the main paths, one or two models on the card at a time
-    launches = {main_path.PRESET: run_path(main_path.PRESET, model,
-                                           batch)[0]}
+    launches, shapes = {}, {}
+    launches[main_path.PRESET], shapes["lidar"] = run_path(main_path.PRESET,
+                                                           model, batch)
+    per_run(results, shapes["lidar"], "flash_attention_packed", "SDPA",
+            "lidar_frame", "lidar")
     del levels
     path = main_path.GATHER_PATH
     gather, gather_batch = main_path.build_main_path(dev, path)
@@ -1092,14 +1188,22 @@ def main():
     model, batch = main_path.build_main_path(dev, preset)
     with torch.inference_mode():
         telemetry(model, batch)
-    launches[preset], shapes = run_path(preset, model, batch)
-    per_fusion_frame(results, shapes, "conv3x3_bn_relu", "cuDNN")
-    per_fusion_frame(results, shapes, "osa_aggregate", "cat + bf16 matmul")
+    launches[preset], fusion = run_path(preset, model, batch)
+    per_run(results, fusion, "conv3x3_bn_relu", "cuDNN", "fusion_frame")
+    per_run(results, fusion, "osa_aggregate", "cat + bf16 matmul",
+            "fusion_frame")
+    per_run(results, fusion, "flash_attention_packed", "SDPA",
+            "fusion_frame", "fusion")
     del model, batch
     torch.cuda.empty_cache()
 
     # 5. the train path
-    launches[main_path.TRAIN_PATH] = run_train(dev)
+    launches[main_path.TRAIN_PATH], train = run_train(dev)
+    per_run(results, train, "flash_train_fwd", "SDPA", "train_step",
+            "train")
+    for name in ("flash_train_bwd_dq", "flash_train_bwd_dkv"):
+        per_run(results, train, name, "SDPA backward (dq, dk, dv)",
+                "train_step", "train")
     torch.cuda.empty_cache()
 
     # 6. slice parity (small configs): GPU kernels vs CPU plain, float32
@@ -1128,8 +1232,8 @@ def main():
         src, replaces = SOURCES[name]
         r = results[name]
         per_path = {p: n[name] for p, n in launches.items()}
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
+        kernels.append(dict(name=name, route="cuda", impl=IMPLS[name],
+                            source=src, replaces=replaces,
                             launches=sum(per_path.values()),
                             launches_per_path=per_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -1137,9 +1241,9 @@ def main():
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"],
                             cases=r["cases"],
-                            **{k: r[k] for k in ("per_fusion_frame_ms",
-                                                 "host_us_per_launch")
-                               if k in r}))
+                            **{k: v for k, v in r.items()
+                               if k.startswith("per_")
+                               or k in ("host_us_per_launch", "bound_ops")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ kernel on a CUDA tensor calls `lib()`, which builds if needed.
 
 Every wrapper adds one to its entry of `launch_counts` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path reached.
-A wrapper may also name the shape it launched at (the 3x3 conv and the
-OSA aggregate do):
+A wrapper may also name the shape it launched at (the 3x3 conv, the OSA
+aggregate and the flash attention kernels, (Nq, Nk, heads, Dh), do):
 `launch_shapes` then counts the launches per (kernel, shape).
 """
 from __future__ import annotations
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "cmt_pillar_conv_kb1": _PILLAR_ARGS,
     "cmt_pillar_occ_fold": [_P] * 3 + [_I] * 8 + [_P],
     "cmt_flash_attention_packed": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
+    "cmt_flash_attention_packed_tc": [_P] * 7 + [_I] * 6 + [_P],
+    "cmt_wgmma_selftest": [_I] + [_P] * 6,
     "cmt_conv3x3_bn_relu_f32": [_P] * 6 + [_I] * 7 + [_P],
     "cmt_conv3x3_tc_weight_map": [_P, _I, _I, _I, _P],
     "cmt_conv3x3_bn_relu_tc": [_P] * 6 + [_I] * 11 + [_P],

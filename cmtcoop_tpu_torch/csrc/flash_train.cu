@@ -31,18 +31,26 @@
 // are written in the packed (B, N, H, Dh) layout. The ragged query and key
 // edges are masked in-kernel, so nothing is padded.
 //
-// What bounds it on the card: arithmetic. At the decoder's cross-attention
-// (1540 queries x 44400 keys x 8 heads x Dh 32) the forward is 35 GMAC
-// (~70 GFLOP), the dQ pass 52 GMAC and the dK/dV pass 70 GMAC, against
-// ~55 MB of operands: at the H100's 989 bf16 TFLOP/s the least times are
-// ~0.071, ~0.106 and ~0.142 ms (chip_smoke.py prints them beside the
-// measured ones). This first version runs every product on the CUDA
-// cores in float32 with register tiles (4 x 4 scores and 4 x Dh/16 outputs
-// per thread) fed from shared memory; tensor cores (wgmma) come later.
-// Tiles: 64 queries x 64 keys, 256 threads; the forward and the dQ pass
-// walk the keys for one (bh, 64-query) tile, the dK/dV pass walks the
-// queries for one (bh, 64-key) tile, so no reduction crosses blocks.
+// What bounds it on the card: the exponentials and the products. At the
+// decoder's cross-attention (1540 queries x 44400 keys x 8 heads x Dh 32)
+// each pass takes one exponential a score, 547 M (0.140 ms at the
+// special-function units' ~3.9 T/s), against 70 GFLOP for the forward, 105
+// for the dQ pass and 140 for the dK/dV pass (0.071, 0.106 and 0.142 ms at
+// the H100's 989 bf16 TFLOP/s); the dropout hash adds about ten integer
+// operations a score. chip_smoke.py prints both floors beside the measured
+// times. The forward and the float32 (and Dh 8) backward run every product
+// on the CUDA cores in float32 with register tiles (4 x 4 scores and 4 x
+// Dh/16 outputs per thread) fed from shared memory: tiles of 64 queries x
+// 64 keys, 256 threads; the forward and the dQ pass walk the keys for one
+// (bh, 64-query) tile, the dK/dV pass walks the queries for one (bh,
+// 64-key) tile, so no reduction crosses blocks. The bf16 Dh-32 backward
+// runs on the tensor cores (`bwd_tc` below).
+#include <string.h>
+
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 #define CMT_NEG_INF (-1e9f)
 
@@ -56,6 +64,11 @@ struct FlashArgs {
   long long sq[3], sk[3], sv[3], sdo[3];  // (batch, head, row) strides
   long long B, H, nq, nk, dh, dtype, seed, thresh;
   double scale, keep_scale;
+  // the bf16 Dh-32 dQ pass's key split: `dq_splits` ranges of
+  // `dq_tiles_per_split` 64-key tiles; with more than one, float32
+  // partials (dq_splits, B, Nq, H, Dh) in `dq_part`
+  float* dq_part;
+  long long dq_splits, dq_tiles_per_split;
 };
 
 namespace {
@@ -496,6 +509,479 @@ __global__ void __launch_bounds__(NT) flash_train_bwd_dkv_kernel(FlashArgs a) {
     a.dkb[(size_t)bh * nk + k0 + tid] = dkb_s[tid];
 }
 
+// ------------------ kernel 8, bfloat16 at Dh 32: tensor cores ---------------
+//
+// The same arithmetic on the tensor cores, two launches as above (no float
+// atomics: dQ and d(k_bias) stay deterministic). Every tile is 64 rows of
+// one head (64 B each), loaded by TMA through a 4D map over the view's
+// (Dh, N, H, B) with a 64-byte swizzle, zeros past the ragged edge; the same
+// tile is a K-major operand of the score products (Dh contiguous) and an
+// MN-major B of the Dh-wide products (wgmma m64n32k16 with tnspB). One
+// producer warp streams the walked tiles into a ring of four stages, its
+// lanes storing each tile's per-row scalars beside them; two consumer
+// warpgroups own 64 rows each.
+//   dQ pass, per (bh, 128 queries, key range): S = Q K^T and dP = dO V^T by
+//   wgmma m64n64k16 from shared memory; P = 2^(S scale log2e + bias log2e -
+//   m log2e) / l, the keep factor and dS = P (dP keep - delta) in registers;
+//   dQ += dS K by the register-A form, dS repacked to bf16 from the score
+//   accumulators. 1540 queries are 13 blocks a head, 104 at batch 1: the
+//   key range is split (ops/attention.py `split_plan`) and
+//   `dq_reduce_kernel` sums the float32 partials in split order.
+//   dK/dV pass, per (bh, 128 keys), walking the queries transposed: S^T =
+//   K Q^T and dP^T = V dO^T, both operands K-major as they sit in memory;
+//   dV += dropout(P^T) dO and dK += dS^T Q by the register-A form;
+//   d(k_bias) is each key row's float32 sum of dS^T, written once by the
+//   block that owns the key. The per-query m, l, delta and dropout row
+//   hash index columns here: the producer's lanes store them per tile.
+// The keep bit is the one above: a row hash per query, computed once, and
+// j * 0xC2B2AE3D per key, incremental along a row. P and dS enter their
+// products as bf16 (float32 accumulators).
+namespace bwd_tc {
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int WG = 2;                    // consumer warpgroups
+constexpr int ROWS = 64 * WG;            // a block's queries (dQ) or keys
+constexpr int TILE = 64 * 64;            // 64 rows x 64 B
+constexpr int STAGES = 4;
+constexpr int THREADS = 128 * WG + 32;   // + the producer warp
+constexpr unsigned KEY_MUL = 0xC2B2AE3Du;
+
+struct Maps {
+  CUtensorMap q, k, v, dout;  // box (32, 64) each
+};
+
+// shared memory from a 1024-byte aligned base: the block's own two
+// operands (WG tiles each), the ring of two walked tiles a stage, the
+// stages' per-row scalars (`SCALARS` bytes a stage), the barriers
+template <int SCALARS>
+struct Layout {
+  static constexpr int OFF_RING = 2 * WG * TILE;
+  static constexpr int OFF_SC = OFF_RING + STAGES * 2 * TILE;
+  static constexpr int OFF_BAR = OFF_SC + STAGES * SCALARS;
+  static constexpr int SMEM = 1024 + OFF_BAR + (2 * STAGES + 1) * 8;
+};
+using DqLayout = Layout<64 * 4>;    // a key tile's scaled bias
+using DkvLayout = Layout<64 * 16>;  // a query tile's (m2, 1/l, delta, hash)
+
+__device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty,
+                                              uint32_t own) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's expect_tx arrive and its 32 lanes' arrives
+      cmt_mbar_init(full + 8 * s, 33);
+      cmt_mbar_init(empty + 8 * s, 128 * WG);
+    }
+    cmt_mbar_init(own, 1);
+    cmt_mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// the block's own rows of two tensors (WG tiles each), on barrier `own`
+__device__ __forceinline__ void load_own(uint32_t base, const CUtensorMap* x,
+                                         const CUtensorMap* y, uint32_t own,
+                                         int r0, int h, int b) {
+  cmt_mbar_expect_tx(own, 2 * WG * TILE);
+  for (int w = 0; w < WG; ++w) {
+    cmt_tma_load_4d(base + w * TILE, x, own, 0, r0 + 64 * w, h, b);
+    cmt_tma_load_4d(base + (WG + w) * TILE, y, own, 0, r0 + 64 * w, h, b);
+  }
+}
+
+// a warpgroup with no real row frees each stage unread
+__device__ __forceinline__ void drain(uint32_t full, uint32_t empty, int n) {
+  for (int i = 0; i < n; ++i) {
+    cmt_mbar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
+    cmt_mbar_arrive(empty + 8 * (i % STAGES));
+  }
+}
+
+// two 64 x 64 score-shaped products over Dh (two 16-deep slices each):
+// x = A1 B1^T, y = A2 B2^T, all four K-major tiles; waits for them and for
+// every earlier wgmma of the warpgroup
+__device__ __forceinline__ void two_scores(float (&x)[32], float (&y)[32],
+                                           uint64_t a1, uint64_t b1,
+                                           uint64_t a2, uint64_t b2) {
+  cmt_fence_regs(x);
+  cmt_fence_regs(y);
+  cmt_wgmma_fence();
+  Wgmma<64>::mma(x, a1, b1, 0);
+  Wgmma<64>::mma(x, a1 + 2, b1 + 2);
+  Wgmma<64>::mma(y, a2, b2, 0);
+  Wgmma<64>::mma(y, a2 + 2, b2 + 2);
+  cmt_wgmma_commit();
+  cmt_wgmma_wait<0>();
+  cmt_fence_regs(x);
+  cmt_fence_regs(y);
+}
+
+// a 64 x 64 accumulator as four 16-column bf16 A fragments
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = cmt_pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+}
+
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) cmt_fence_regs(a[kk]);
+}
+
+// d += A B over 64 rows of K: A the fragments, B a tile read MN-major
+__device__ __forceinline__ void rs_product(float (&d)[16],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t tile) {
+  const uint64_t bd = cmt_sw64_mn_desc(tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) cmt_wgmma_rs32(d, a[kk], bd + 64 * kk);
+}
+
+__device__ __forceinline__ float keep_of(unsigned rh, unsigned jm,
+                                         unsigned thresh, float keep_scale) {
+  return fmix32(rh ^ jm) >= thresh ? keep_scale : 0.f;
+}
+
+// a 64-row warpgroup's accumulator (rows r0 and r0 + 8, columns 8j + 2
+// quad + {0, 1}) times `mul`, to the packed (B, N, H, 32) bf16 layout
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           const float (&acc)[16],
+                                           const int (&rows)[2], int n,
+                                           int row_stride, float mul,
+                                           int quad) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (rows[hh] >= n) continue;
+    __nv_bfloat16* o = base + (size_t)rows[hh] * row_stride + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * hh] * mul, acc[4 * j + 2 * hh + 1] * mul);
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_kernel(const __grid_constant__ Maps maps, const FlashArgs a) {
+  using L = DqLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = cmt_smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* bias_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::OFF_SC);
+  const uint32_t full = base + L::OFF_BAR, empty = full + 8 * STAGES;
+  const uint32_t own = empty + 8 * STAGES;
+
+  const int nq = (int)a.nq, nk = (int)a.nk, H = (int)a.H;
+  const int q0 = blockIdx.x * ROWS, split = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / H, h = bh - b * H;
+  const int tps = (int)a.dq_tiles_per_split;
+  const int t0 = split * tps;
+  const int n_tiles = min((nk + 63) / 64, t0 + tps) - t0;
+  init_barriers(full, empty, own);
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == WG) {  // producer: Q and dO once, then K, V and bias a tile
+    if (lane == 0) load_own(base, &maps.q, &maps.dout, own, q0, h, b);
+    const float* kbias = a.kbias + (size_t)b * nk;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES, k0 = (t0 + i) * 64;
+      cmt_mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t t = base + L::OFF_RING + s * 2 * TILE;
+        cmt_mbar_expect_tx(full + 8 * s, 2 * TILE);
+        cmt_tma_load_4d(t, &maps.k, full + 8 * s, 0, k0, h, b);
+        cmt_tma_load_4d(t + TILE, &maps.v, full + 8 * s, 0, k0, h, b);
+      }
+      for (int e = lane; e < 64; e += 32)
+        bias_s[s * 64 + e] =
+            k0 + e < nk ? kbias[k0 + e] * LOG2E : -INFINITY;
+      cmt_mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+  if (q0 + wg * 64 >= nq) {
+    drain(full, empty, n_tiles);
+    return;
+  }
+
+  const int warp = (threadIdx.x % 128) / 32, quad = lane & 3;
+  const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
+  const int rows[2] = {r0, r0 + 8};
+  // per row: m log2 e, 1 / max(l, 1e-30), delta, the dropout row hash;
+  // rows past Nq get P = 0 (2^-inf, times 0)
+  float m2[2], il[2], dl[2];
+  unsigned rh[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const bool ok = rows[hh] < nq;
+    const size_t at = (size_t)bh * nq + rows[hh];
+    m2[hh] = ok ? a.m[at] * LOG2E : INFINITY;
+    il[hh] = ok ? 1.f / fmaxf(a.l[at], 1e-30f) : 0.f;
+    dl[hh] = ok ? a.delta[at] : 0.f;
+    rh[hh] = DROP ? row_hash((unsigned)a.seed, bh, rows[hh]) : 0u;
+  }
+  const float scale2 = (float)a.scale * LOG2E;
+  const float keep_scale = (float)a.keep_scale;
+  const unsigned thresh = (unsigned)a.thresh;
+  const uint64_t qd = cmt_sw64_desc(base + wg * TILE);
+  const uint64_t dod = cmt_sw64_desc(base + (WG + wg) * TILE);
+  float dq[16], sc[32], dp[32];
+  uint32_t ds[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ds[kk][0] = ds[kk][1] = ds[kk][2] = ds[kk][3] = 0u;
+  cmt_mbar_wait(own, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES, k0 = (t0 + i) * 64;
+    const uint32_t t = base + L::OFF_RING + s * 2 * TILE;
+    cmt_mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    two_scores(sc, dp, qd, cmt_sw64_desc(t), dod, cmt_sw64_desc(t + TILE));
+    cmt_fence_regs(dq);  // the previous tile's dQ product is done too
+    fence_a(ds);
+    if (i > 0) cmt_mbar_arrive(empty + 8 * ((i - 1) % STAGES));
+
+    const float* bs = bias_s + s * 64;
+    const unsigned jm0 = (unsigned)(k0 + 2 * quad) * KEY_MUL;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1, c = e & 1;
+        const float p = cmt_ex2(fmaf(sc[4 * j + e], scale2, c ? bb.y : bb.x) -
+                                m2[hh]) * il[hh];
+        float dpv = dp[4 * j + e];
+        if (DROP)
+          dpv *= keep_of(rh[hh], jm0 + (unsigned)(8 * j + c) * KEY_MUL,
+                         thresh, keep_scale);
+        sc[4 * j + e] = p * (dpv - dl[hh]);  // dS
+      }
+    }
+    pack_a(ds, sc);
+    cmt_wgmma_fence();
+    rs_product(dq, ds, t);  // dQ += dS K, K read MN-major
+    cmt_wgmma_commit();
+  }
+  cmt_wgmma_wait<0>();
+  cmt_fence_regs(dq);
+  fence_a(ds);
+
+  const int c = H * 32;
+  if (a.dq_splits == 1) {
+    store_rows((__nv_bfloat16*)a.dq + (size_t)b * nq * c + h * 32, dq, rows,
+               nq, c, (float)a.scale, quad);
+    return;
+  }
+  float* part = a.dq_part + ((size_t)split * a.B + b) * nq * c + h * 32 +
+                2 * quad;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (rows[hh] >= nq) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(part + (size_t)rows[hh] * c + 8 * j) =
+          make_float2(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+  }
+}
+
+// dq = scale * the sum of the splits' partials, in split order
+__global__ void dq_reduce_kernel(const float* __restrict__ part,
+                                 __nv_bfloat16* __restrict__ dq, size_t n,
+                                 int splits, float scale) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += part[s * n + idx];
+  dq[idx] = __float2bfloat16(acc * scale);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    dkv_kernel(const __grid_constant__ Maps maps, const FlashArgs a) {
+  using L = DkvLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = cmt_smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float4* st_s = reinterpret_cast<float4*>(smem_raw + (base - raw) + L::OFF_SC);
+  const uint32_t full = base + L::OFF_BAR, empty = full + 8 * STAGES;
+  const uint32_t own = empty + 8 * STAGES;
+
+  const int nq = (int)a.nq, nk = (int)a.nk, H = (int)a.H;
+  const int k0 = blockIdx.x * ROWS, bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int n_tiles = (nq + 63) / 64;
+  init_barriers(full, empty, own);
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == WG) {  // producer: K and V once, then Q, dO and stats a tile
+    if (lane == 0) load_own(base, &maps.k, &maps.v, own, k0, h, b);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES, q0 = i * 64;
+      cmt_mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t t = base + L::OFF_RING + s * 2 * TILE;
+        cmt_mbar_expect_tx(full + 8 * s, 2 * TILE);
+        cmt_tma_load_4d(t, &maps.q, full + 8 * s, 0, q0, h, b);
+        cmt_tma_load_4d(t + TILE, &maps.dout, full + 8 * s, 0, q0, h, b);
+      }
+      // columns past Nq get P = 0 (2^-inf, times 0)
+      for (int e = lane; e < 64; e += 32) {
+        const int qi = q0 + e;
+        const bool ok = qi < nq;
+        const size_t at = (size_t)bh * nq + qi;
+        st_s[s * 64 + e] = make_float4(
+            ok ? a.m[at] * LOG2E : INFINITY,
+            ok ? 1.f / fmaxf(a.l[at], 1e-30f) : 0.f, ok ? a.delta[at] : 0.f,
+            __uint_as_float(DROP ? row_hash((unsigned)a.seed, bh, qi) : 0u));
+      }
+      cmt_mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+  if (k0 + wg * 64 >= nk) {
+    drain(full, empty, n_tiles);
+    return;
+  }
+
+  const int warp = (threadIdx.x % 128) / 32, quad = lane & 3;
+  const int r0 = k0 + wg * 64 + warp * 16 + lane / 4;
+  const int rows[2] = {r0, r0 + 8};  // keys
+  float bias2[2];
+  unsigned km[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    bias2[hh] = rows[hh] < nk ? a.kbias[(size_t)b * nk + rows[hh]] * LOG2E
+                              : -INFINITY;
+    km[hh] = (unsigned)rows[hh] * KEY_MUL;
+  }
+  const float scale2 = (float)a.scale * LOG2E;
+  const float keep_scale = (float)a.keep_scale;
+  const unsigned thresh = (unsigned)a.thresh;
+  const uint64_t kd = cmt_sw64_desc(base + wg * TILE);
+  const uint64_t vd = cmt_sw64_desc(base + (WG + wg) * TILE);
+  float dk[16], dv[16], sc[32], dp[32], dkb[2] = {0.f, 0.f};
+  uint32_t pa[4][4], ds[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = ds[kk][r] = 0u;
+  cmt_mbar_wait(own, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t t = base + L::OFF_RING + s * 2 * TILE;
+    cmt_mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    // S^T = K Q^T, dP^T = V dO^T
+    two_scores(sc, dp, kd, cmt_sw64_desc(t), vd, cmt_sw64_desc(t + TILE));
+
+    const float4* qs = st_s + s * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 cs[2] = {qs[8 * j + 2 * quad], qs[8 * j + 2 * quad + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const float4 q = cs[e & 1];  // (m2, 1/l, delta, hash) of the column
+        const float p = cmt_ex2(fmaf(sc[4 * j + e], scale2, bias2[hh]) - q.x) *
+                        q.y;
+        const float kf =
+            DROP ? keep_of(__float_as_uint(q.w), km[hh], thresh, keep_scale)
+                 : 1.f;
+        const float g = p * (dp[4 * j + e] * kf - q.z);  // dS^T
+        sc[4 * j + e] = p * kf;                          // dropout(P)^T
+        dp[4 * j + e] = g;
+        dkb[hh] += g;
+      }
+    }
+    pack_a(pa, sc);
+    pack_a(ds, dp);
+    cmt_wgmma_fence();
+    rs_product(dv, pa, t + TILE);  // dV += dropout(P)^T dO
+    rs_product(dk, ds, t);         // dK += dS^T Q
+    cmt_wgmma_commit();
+    // waited here, not under the next tile's scores: with both in flight
+    // the registers run out and ptxas serialises every wgmma (C7515)
+    cmt_wgmma_wait<0>();
+    cmt_fence_regs(dk);
+    cmt_fence_regs(dv);
+    fence_a(pa);
+    fence_a(ds);
+    cmt_mbar_arrive(empty + 8 * s);
+  }
+
+  const int c = H * 32;
+  const size_t kv_base = (size_t)b * nk * c + h * 32;
+  store_rows((__nv_bfloat16*)a.dk + kv_base, dk, rows, nk, c, (float)a.scale,
+             quad);
+  store_rows((__nv_bfloat16*)a.dv + kv_base, dv, rows, nk, c, 1.f, quad);
+  if (a.dkb == nullptr) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float g = dkb[hh];
+    g += __shfl_xor_sync(0xffffffffu, g, 1);
+    g += __shfl_xor_sync(0xffffffffu, g, 2);
+    if (quad == 0 && rows[hh] < nk) a.dkb[(size_t)bh * nk + rows[hh]] = g;
+  }
+}
+
+// (batch, head, row) strides -> cmt_head_map's (row, head, batch)
+static bool map_of(CUtensorMap* map, const void* ptr, const long long (&s)[3],
+                   long long n, const FlashArgs& a) {
+  const long long st[3] = {s[2], s[1], s[0]};
+  return cmt_head_map(map, ptr, n, a.H, a.B, st, 64);
+}
+
+template <bool DROP>
+int launch(bool dq_pass, const FlashArgs& a, cudaStream_t st) {
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!map_of(&maps.q, a.q, a.sq, a.nq, a) ||
+      !map_of(&maps.k, a.k, a.sk, a.nk, a) ||
+      !map_of(&maps.v, a.v, a.sv, a.nk, a) ||
+      !map_of(&maps.dout, a.dout, a.sdo, a.nq, a))
+    return (int)cudaErrorInvalidValue;
+  const unsigned bh = (unsigned)(a.B * a.H);
+  if (dq_pass) {
+    const long long ktiles = (a.nk + 63) / 64, tps = a.dq_tiles_per_split;
+    if (tps <= 0 || a.dq_splits != (ktiles + tps - 1) / tps ||
+        (a.dq_splits > 1 && a.dq_part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    static bool smem_set[CMT_MAX_DEVICES] = {};
+    cudaError_t err =
+        cmt_allow_smem(dq_kernel<DROP>, DqLayout::SMEM, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((a.nq + ROWS - 1) / ROWS),
+                    (unsigned)a.dq_splits, bh);
+    dq_kernel<DROP><<<grid, THREADS, DqLayout::SMEM, st>>>(maps, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || a.dq_splits == 1) return (int)err;
+    const size_t n = (size_t)a.B * a.nq * a.H * 32;
+    dq_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        a.dq_part, (__nv_bfloat16*)a.dq, n, (int)a.dq_splits,
+        (float)a.scale);
+    return (int)cudaGetLastError();
+  }
+  static bool smem_set[CMT_MAX_DEVICES] = {};
+  cudaError_t err =
+      cmt_allow_smem(dkv_kernel<DROP>, DkvLayout::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((a.nk + ROWS - 1) / ROWS), bh);
+  dkv_kernel<DROP><<<grid, THREADS, DkvLayout::SMEM, st>>>(maps, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd_tc
+
 // dynamic shared memory of each kernel, in floats
 template <int DH>
 constexpr int fwd_smem() {
@@ -515,30 +1001,36 @@ enum class Pass { kFwd, kDq, kDkv };
 template <typename T, int DH, bool DROP>
 int launch(Pass pass, const FlashArgs& a, cudaStream_t st) {
   const int bh = (int)(a.B * a.H);
-  if (pass == Pass::kFwd || pass == Pass::kDq) {
+  if (pass == Pass::kFwd) {
     const dim3 grid((unsigned)((a.nq + BQ - 1) / BQ), bh);
-    if (pass == Pass::kFwd) {
-      const size_t bytes = fwd_smem<DH>() * sizeof(float);
-      auto fn = flash_train_fwd_kernel<T, DH, DROP>;
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-      fn<<<grid, NT, bytes, st>>>(a);
-    } else {
+    const size_t bytes = fwd_smem<DH>() * sizeof(float);
+    auto fn = flash_train_fwd_kernel<T, DH, DROP>;
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    fn<<<grid, NT, bytes, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  // bf16 at Dh 32: the backward is the tensor-core route's (bwd_tc)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == 32) {
+    return bwd_tc::launch<DROP>(pass == Pass::kDq, a, st);
+  } else {
+    if (pass == Pass::kDq) {
+      const dim3 grid((unsigned)((a.nq + BQ - 1) / BQ), bh);
       const size_t bytes = dq_smem<DH>() * sizeof(float);
       auto fn = flash_train_bwd_dq_kernel<T, DH, DROP>;
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
       fn<<<grid, NT, bytes, st>>>(a);
+    } else {
+      const dim3 grid((unsigned)((a.nk + BK - 1) / BK), bh);
+      const size_t bytes = dkv_smem<DH>() * sizeof(float);
+      auto fn = flash_train_bwd_dkv_kernel<T, DH, DROP>;
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      fn<<<grid, NT, bytes, st>>>(a);
     }
-  } else {
-    const dim3 grid((unsigned)((a.nk + BK - 1) / BK), bh);
-    const size_t bytes = dkv_smem<DH>() * sizeof(float);
-    auto fn = flash_train_bwd_dkv_kernel<T, DH, DROP>;
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)bytes);
-    fn<<<grid, NT, bytes, st>>>(a);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T, bool DROP>

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only; nothing links to libcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +93,22 @@ __device__ __forceinline__ uint64_t cmt_sw128_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
+// The same for a tile of 64-byte rows (32 bf16: one attention head) as TMA
+// writes it with a 64-byte swizzle: 8-row atoms of 512 B, the tile
+// 512-byte aligned; 16 elements along K add 32 B.
+__device__ __forceinline__ uint64_t cmt_sw64_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+// The same tile read MN-major (tnspB = 1): a B operand whose N (the 32
+// columns of a row) is contiguous and whose K runs down the rows. N = 32
+// is one 64-byte swizzle atom wide, so only the stride between 8-row
+// groups along K (512 B) is used; it goes in both offset fields, which
+// then cannot be swapped. 16 rows along K add 1024 B.
+__device__ __forceinline__ uint64_t cmt_sw64_mn_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(512 >> 4) << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
 __device__ __forceinline__ void cmt_wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -110,17 +127,77 @@ __device__ __forceinline__ void cmt_fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void cmt_fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// 2^x on the special-function unit (the softmax's exponential, its
+// argument prescaled by log2 e)
+__device__ __forceinline__ float cmt_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// two floats rounded to a bf16 pair, `lo` in the low half (the lower
+// column of an operand fragment)
+__device__ __forceinline__ uint32_t cmt_pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // D (64 x N, float32, N/2 registers a thread) += A (64 x 16) B (16 x N),
-// bf16 operands by descriptor, both K-major. One specialisation per width
-// the conv and aggregate kernels instantiate: PTX names every accumulator
-// register.
+// bf16 operands by descriptor, both K-major; `scale_d` 0 overwrites D. One
+// specialisation per width the kernels instantiate: PTX names every
+// accumulator register. Accumulator layout: warp w of the warpgroup holds
+// rows 16w + lane/4 (+ 8); register 4j + 2hh + e is column 8j + 2(lane%4)
+// + e of row half hh.
 template <int N>
 struct Wgmma;
+
+// N = 32 (one attention head wide), with B K-major (TB = 0) or MN-major
+// (TB = 1, its descriptor from cmt_sw64_mn_desc)
+template <>
+struct Wgmma<32> {
+  template <int TB = 0>
+  __device__ static __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
+};
+
+// D (64 x 32) += A (64 x 16) B (16 x 32) with A in registers (the RS form)
+// and B MN-major by descriptor (cmt_sw64_mn_desc). A's fragment is the
+// accumulator layout of a 16-column slice of an earlier product, two
+// columns a register: for columns 16kk .. 16kk + 15 of an accumulator c,
+// a = {pack(c[8kk], c[8kk+1]), pack(c[8kk+2], c[8kk+3]), pack(c[8kk+4],
+// c[8kk+5]), pack(c[8kk+6], c[8kk+7])}. The registers stay read until the
+// wgmma completes: keep them alive (cmt_fence_regs) past its wait.
+__device__ __forceinline__ void cmt_wgmma_rs32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d = 1) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+    " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+    "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 template <>
 struct Wgmma<64> {
   __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -131,14 +208,14 @@ struct Wgmma<64> {
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<128> {
   __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -155,14 +232,14 @@ struct Wgmma<128> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<160> {
   __device__ static __forceinline__ void mma(float (&d)[80], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
@@ -182,14 +259,14 @@ struct Wgmma<160> {
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<192> {
   __device__ static __forceinline__ void mma(float (&d)[96], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
@@ -212,14 +289,14 @@ struct Wgmma<192> {
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<224> {
   __device__ static __forceinline__ void mma(float (&d)[112], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
@@ -245,14 +322,14 @@ struct Wgmma<224> {
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
         "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<256> {
   __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -281,11 +358,30 @@ struct Wgmma<256> {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
-// ---- host: tensor maps ----
+// ---- host ----
+#define CMT_MAX_DEVICES 64
+// raises `kernel`'s dynamic shared memory limit to `bytes` once per device
+// (an attribute of the function in the current device's context);
+// `done` is the kernel's own flag array
+template <typename Kernel>
+static cudaError_t cmt_allow_smem(Kernel kernel, int bytes,
+                                  bool (&done)[CMT_MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < CMT_MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < CMT_MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+// tensor maps
 typedef CUresult (*CmtEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                    cuuint32_t, void*, const cuuint64_t*,
                                    const cuuint64_t*, const cuuint32_t*,
@@ -312,17 +408,38 @@ static CmtEncodeTiled cmt_encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map of `rank` dims (innermost first, at most 4), 128-byte
-// swizzle, zeros outside the tensor
+// a bf16 tensor map of `rank` dims (innermost first, at most 4), a 128-byte
+// swizzle unless said, zeros outside the tensor
 static bool cmt_bf16_map(CUtensorMap* map, const void* ptr, int rank,
                          const cuuint64_t* dims, const cuuint64_t* strides,
-                         const cuuint32_t* box) {
+                         const cuuint32_t* box,
+                         CUtensorMapSwizzle swizzle =
+                             CU_TENSOR_MAP_SWIZZLE_128B) {
   CmtEncodeTiled fn = cmt_encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(ptr), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 64-byte-swizzled map of one head's Dh = 32 columns of a (B, H, N, Dh)
+// view with unit stride along Dh: dims (Dh, N, H, B), `strides` the view's
+// (row, head, batch) strides in elements, box (32, rows, 1, 1). False if
+// TMA cannot address it (16-byte aligned base and strides).
+static bool cmt_head_map(CUtensorMap* map, const void* ptr, long long n,
+                         long long heads, long long batch,
+                         const long long* strides, int rows) {
+  if ((size_t)ptr % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] <= 0 || (strides[i] * 2) % 16) return false;
+  const cuuint64_t dims[4] = {32, (cuuint64_t)n, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t st[3] = {(cuuint64_t)strides[0] * 2,
+                            (cuuint64_t)strides[1] * 2,
+                            (cuuint64_t)strides[2] * 2};
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  return cmt_bf16_map(map, ptr, 4, dims, st, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }

@@ -12,10 +12,14 @@ package's (B, H, N, Dh) layout at the public functions unless said.
   plain attention.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
-hand-written CUDA kernel for a CUDA tensor. The kernels mask the ragged
-query and key edges themselves, so callers pad nothing, and kernels 7 and 8
-read (B, H, N, Dh) views through their strides, so the decoder never copies
-its (B, N, H*Dh) projections into (B, H, N, Dh).
+hand-written CUDA kernel for a CUDA tensor. In bfloat16 at Dh 32 (the
+presets' 256 / 8 heads) kernel 3 and kernel 8 run on the tensor cores
+(wgmma fed by TMA), their key range split across blocks by `split_plan`;
+float32 and the tiny presets' head widths take the CUDA-core kernels. The
+kernels mask the ragged query and key edges themselves, so callers pad
+nothing, and kernels 7 and 8 read (B, H, N, Dh) views through their
+strides, so the decoder never copies its (B, N, H*Dh) projections into
+(B, H, N, Dh).
 
 Dropout cannot reproduce the TPU's bits. In kernels 7 and 8 the keep bit
 of element (bh, i, j) is a counter-based hash of (seed, bh, i, j)
@@ -28,16 +32,61 @@ which a checkpoint's recompute also reproduces.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from cmtcoop_tpu_torch import _build
+from cmtcoop_tpu_torch.ops.conv_cf import sm_count
 
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
 TRAIN_HEAD_DIMS = (8, 32)  # kernels 7 and 8: the presets' head widths
+TC_HEAD_DIM = 32  # bf16 at this Dh runs kernels 3 and 8 on the tensor cores
+# (queries a block, keys a walked tile) of kernel 3's
+# `flash_tc::packed_tc_kernel` (csrc/flash_attention.cu: three warpgroups
+# of 64 queries) and of kernel 8's dQ pass `bwd_tc::dq_kernel`
+# (csrc/flash_train.cu: two)
+PACKED_TC_TILE = (192, 128)
+DQ_TC_TILE = (128, 64)
+
+
+class SplitPlan(NamedTuple):
+    """Split s walks the key tiles [s * tiles_per_split, min(key_tiles,
+    (s + 1) * tiles_per_split))."""
+    splits: int
+    tiles_per_split: int
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(row_blocks: int, key_tiles: int, n_sms: int) -> SplitPlan:
+    """How a flash kernel's key walk is split across blocks, for
+    `row_blocks` (batch x heads x query tiles) blocks of one SM each: the
+    least wave-quantized walk, ceil(blocks / SMs) waves of (tiles a split
+    + 2) steps (a block's load of its rows and its partial's store count as
+    about a tile each), over the splits whose ranges are all non-empty and
+    that fill at least a wave where the keys allow; ties go to fewer splits
+    (less partial traffic)."""
+    fill = min(n_sms, row_blocks * key_tiles)
+    best = None
+    for s in range(1, key_tiles + 1):
+        tps = -(-key_tiles // s)
+        if -(-key_tiles // tps) != s or row_blocks * s < fill:
+            continue
+        cost = -(-row_blocks * s // n_sms) * (tps + 2)
+        if best is None or cost < best[0]:
+            best = (cost, SplitPlan(s, tps))
+    return best[1]
+
+
+def _tma_ready(*tensors) -> bool:
+    """TMA addresses a bf16 (B, H, N, 32) view (or (B, N, H*32) tensor) with
+    16-byte aligned base and strides."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * 2 % 16 == 0 for st in t.stride()[:-1])
+               for t in tensors)
 
 _M32 = 0xFFFFFFFF
 
@@ -154,14 +203,54 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k_bias.shape != (b, nk):
         raise ValueError("flash_attention_packed: k_bias must be (B, Nk)")
     out = torch.empty_like(q)
-    lib = _build.lib()
-    _build.check(lib.cmt_flash_attention_packed(
-        _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_bias.data_ptr(), out.data_ptr(), b, nq, nk, num_heads, dh,
-        1.0 / math.sqrt(dh), _build.stream_ptr(q.device)),
-        "cmt_flash_attention_packed")
-    _build.count("flash_attention_packed")
+    lib, stream = _build.lib(), _build.stream_ptr(q.device)
+    if q.dtype == torch.bfloat16 and dh == TC_HEAD_DIM:
+        if not _tma_ready(q, k, v):
+            raise ValueError("flash_attention_packed: q, k, v must be "
+                             "16-byte aligned for TMA")
+        bq, bk = PACKED_TC_TILE
+        plan = split_plan(b * num_heads * -(-nq // bq), -(-nk // bk),
+                          sm_count(q.device))
+        opart = ml = None
+        if plan.splits > 1:
+            opart = torch.empty(plan.splits, b * num_heads, nq, dh,
+                                dtype=torch.float32, device=q.device)
+            ml = torch.empty(plan.splits, b * num_heads, nq, 2,
+                             dtype=torch.float32, device=q.device)
+        _build.check(lib.cmt_flash_attention_packed_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_bias.data_ptr(),
+            out.data_ptr(), _build.ptr(opart), _build.ptr(ml), b, nq, nk,
+            num_heads, plan.splits, plan.tiles_per_split, stream),
+            "cmt_flash_attention_packed_tc")
+    else:
+        _build.check(lib.cmt_flash_attention_packed(
+            _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), k_bias.data_ptr(), out.data_ptr(), b, nq, nk,
+            num_heads, dh, 1.0 / math.sqrt(dh), stream),
+            "cmt_flash_attention_packed")
+    _build.count("flash_attention_packed", (nq, nk, num_heads, dh))
     return out
+
+
+def wgmma_check(which: int, a: torch.Tensor, b: torch.Tensor,
+                c: Optional[torch.Tensor] = None):
+    """One product of the Hopper primitives the bf16 flash kernels build on
+    (csrc/wgmma_selftest.cu), on bf16 row-major CUDA tensors of 32 columns:
+    which 0: a (64, 32) @ b (32, 32)^T; 1: a @ b (32, 32); 2: x = a @ b
+    (64, 32)^T, then bf16(x) @ c (64, 32). Returns the float32 product and,
+    for 2, x."""
+    d = torch.empty(64, 32, dtype=torch.float32, device=a.device)
+    x = torch.empty(64, 64, dtype=torch.float32, device=a.device)
+    ins = [t.contiguous() for t in (a, b, c) if t is not None]
+    if any(t.dtype != torch.bfloat16 or t.device.type != "cuda"
+           or t.shape[1] != 32 for t in ins):
+        raise ValueError("wgmma_check: bf16 CUDA tensors of 32 columns")
+    a, b = ins[:2]
+    c = ins[2] if len(ins) > 2 else None
+    _build.check(_build.lib().cmt_wgmma_selftest(
+        which, a.data_ptr(), b.data_ptr(), _build.ptr(c), d.data_ptr(),
+        x.data_ptr(), _build.stream_ptr(a.device)), "cmt_wgmma_selftest")
+    return (d, x) if which == 2 else d
 
 
 # ----------------------- training attention (kernels 7 and 8) ---------------
@@ -174,7 +263,9 @@ class _FlashArgs(ctypes.Structure):
         + [(n, ctypes.c_longlong * 3) for n in ("sq", "sk", "sv", "sdo")]
         + [(n, ctypes.c_longlong) for n in (
             "B", "H", "nq", "nk", "dh", "dtype", "seed", "thresh")]
-        + [("scale", ctypes.c_double), ("keep_scale", ctypes.c_double)])
+        + [("scale", ctypes.c_double), ("keep_scale", ctypes.c_double),
+           ("dq_part", ctypes.c_void_p), ("dq_splits", ctypes.c_longlong),
+           ("dq_tiles_per_split", ctypes.c_longlong)])
 
 
 def _keep_factor(seed, rate, b, h, nq, nk, device):
@@ -282,7 +373,13 @@ def _launch(name: str, a: _FlashArgs, dev) -> None:
     fn = getattr(_build.lib(), "cmt_" + name)
     _build.check(fn(ctypes.addressof(a), _build.stream_ptr(dev)),
                  "cmt_" + name)
-    _build.count(name)
+    _build.count(name, (a.nq, a.nk, a.H, a.dh))
+
+
+def _tensor_cores(a: _FlashArgs) -> bool:
+    """Kernel 8 runs on the tensor cores (csrc/flash_train.cu `bwd_tc`)."""
+    return a.dtype == _build.dtype_code(torch.bfloat16) and \
+        a.dh == TC_HEAD_DIM
 
 
 def flash_attention_kvmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -324,7 +421,7 @@ def _bwd_args(q, k, v, k_bias, out, m, l, dout, dropout_rate, seed):
     to, which the caller keeps alive until the launches are enqueued."""
     b, h, nq, dh = q.shape
     a = _train_args(q, k, v, k_bias, dropout_rate, seed)
-    if dout.stride(-1) != 1:
+    if dout.stride(-1) != 1 or (_tensor_cores(a) and not _tma_ready(dout)):
         dout = dout.contiguous()
     a.sdo = _strides("dout", dout, (b, h, nq, dh), q.dtype, q.device)
     delta = (dout.float() * out.float()).sum(-1).contiguous()
@@ -335,22 +432,37 @@ def _bwd_args(q, k, v, k_bias, out, m, l, dout, dropout_rate, seed):
                              "(B, H, Nq)")
     a.dout, a.m, a.l, a.delta = (dout.data_ptr(), m.data_ptr(),
                                  l.data_ptr(), delta.data_ptr())
+    if _tensor_cores(a) and not _tma_ready(q, k, v):
+        raise ValueError("flash_attention_bwd: q, k and v must be 16-byte "
+                         "aligned for TMA")
     return a, (dout, delta, m, l)
 
 
 def _bwd_dq(a: _FlashArgs, q) -> torch.Tensor:
-    """Kernel 8's dQ launch on a prepared block (one block per (bh,
-    64-query tile), walking the keys): dq as a (B, H, Nq, Dh) view."""
+    """Kernel 8's dQ launch on a prepared block (one block per (bh, query
+    tile), walking the keys; in bf16 at Dh 32 the keys split across blocks
+    by `split_plan`, the float32 partials summed in split order): dq as a
+    (B, H, Nq, Dh) view."""
     b, h, nq, dh = q.shape
     dq = torch.empty(b, nq, h, dh, dtype=q.dtype, device=q.device)
     a.dq = dq.data_ptr()
+    part = None
+    if _tensor_cores(a):
+        bq, bk = DQ_TC_TILE
+        plan = split_plan(b * h * -(-nq // bq), -(-a.nk // bk),
+                          sm_count(q.device))
+        a.dq_splits, a.dq_tiles_per_split = plan
+        if plan.splits > 1:
+            part = torch.empty(plan.splits, b, nq, h, dh,
+                               dtype=torch.float32, device=q.device)
+        a.dq_part = _build.ptr(part)
     _launch("flash_train_bwd_dq", a, q.device)
     return dq.transpose(1, 2)
 
 
 def _bwd_dkv(a: _FlashArgs, k, k_bias, with_dk_bias: bool = True):
     """Kernel 8's dK / dV / d(k_bias) launch on a prepared block (one block
-    per (bh, 64-key tile), walking the queries): dk, dv as (B, H, Nk, Dh)
+    per (bh, key tile), walking the queries): dk, dv as (B, H, Nk, Dh)
     views and d(k_bias) (B, Nk), its per-head sums added here, or None
     (not written) without `with_dk_bias`."""
     b, h, nk, dh = k.shape

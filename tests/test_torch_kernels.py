@@ -30,7 +30,7 @@ from cmtcoop_tpu_torch.ops import pillars as pu
 from cmtcoop_tpu_torch.ops.attention import (
     NEG_INF, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_kvmask, flash_attention_kvmask_reference,
-    flash_attention_packed, flash_attention_packed_reference)
+    flash_attention_packed, flash_attention_packed_reference, wgmma_check)
 from cmtcoop_tpu_torch.models.vovnet import OSAModule
 from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                            conv3x3_bn_relu_packed,
@@ -305,7 +305,8 @@ def test_profile_summary_reads_one_trace():
 def test_profile_summary_train_stages():
     """The train trace's stages: device time charged to the innermost
     span (a forward stage inside `forward`), host span per stage, and
-    kernels 7 and 8 picked out by name."""
+    kernels 7 and 8 picked out by name (kernel 8's tensor-core passes
+    too)."""
     def ev(cat, name, ts, dur, corr=None):
         return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
                     args={} if corr is None else {"correlation": corr})
@@ -318,9 +319,11 @@ def test_profile_summary_train_stages():
         ev("cuda_runtime", "cudaLaunchKernel", 50, 1, corr=1),
         ev("cuda_runtime", "cudaLaunchKernel", 150, 1, corr=2),
         ev("cuda_runtime", "cudaLaunchKernel", 600, 1, corr=3),
+        ev("cuda_runtime", "cudaLaunchKernel", 650, 1, corr=4),
         ev("kernel", "conv", 60, 30, corr=1),
         ev("kernel", "flash_train_fwd_kernel<bf16>", 160, 100, corr=2),
-        ev("kernel", "flash_train_bwd_dkv_kernel<bf16>", 610, 300, corr=3),
+        ev("kernel", "flash_train_bwd_dkv_kernel<bf16>", 610, 200, corr=3),
+        ev("kernel", "bwd_tc::dq_kernel<true>", 810, 100, corr=4),
     ]}
     got = profile_path.summarize(
         trace, 1, profile_path.STAGES + profile_path.TRAIN_STAGES)
@@ -331,7 +334,8 @@ def test_profile_summary_train_stages():
          "backward": 0.4})
     assert got["train_kernels_ms"] == pytest.approx(
         {"flash_train_fwd_kernel<bf16>": 0.1,
-         "flash_train_bwd_dkv_kernel<bf16>": 0.3})
+         "flash_train_bwd_dkv_kernel<bf16>": 0.2,
+         "bwd_tc::dq_kernel<true>": 0.1})
     assert got["idle_share"] == pytest.approx(0.57)
 
 
@@ -522,6 +526,114 @@ def test_attention_kernel_matches_plain(dtype, tol, heads, dh, nq, nk):
     kb[1, nk // 2:] = NEG_INF
     _assert_close(flash_attention_packed(q, k, v, kb, heads),
                   flash_attention_packed_reference(q, k, v, kb, heads), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_wgmma_primitives_match_matmul(which):
+    """Each Hopper primitive the bf16 flash kernels build on, one 64-row
+    product against torch.matmul in float32 (csrc/wgmma_selftest.cu): 0,
+    wgmma m64n32k16 with both operands K-major in 64-byte-swizzled rows; 1,
+    the same with B MN-major (the tnspB descriptor); 2, m64n64k16 on
+    64-byte rows, then its accumulators repacked to bf16 as the A operand of
+    the register-A form against an MN-major B. Inputs are bf16, so the
+    products are exact up to the float32 summation order."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(which)
+    a = torch.randn(64, 32, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(64 if which == 2 else 32, 32, generator=g,
+                    device=dev).to(torch.bfloat16)
+    c = torch.randn(64, 32, generator=g, device=dev).to(torch.bfloat16)
+    if which < 2:
+        got = wgmma_check(which, a, b)
+        want = a.float() @ (b.float().t() if which == 0 else b.float())
+    else:
+        got, x = wgmma_check(2, a, b, c)
+        _assert_rel(x, a.float() @ b.float().t(), 1e-5)
+        want = x.to(torch.bfloat16).float() @ c.float()
+    torch.cuda.synchronize()
+    _assert_rel(got, want, 1e-5)
+
+
+def _packed_tc_inputs(dev, b, nq, nk, heads, all_masked_row=True):
+    """bf16 packed projections, q scaled so the softmax peaks (logit std
+    4), a quarter of the keys of batch row 0 masked with NEG_INF, and
+    every key of the last batch row masked (its rows then average V
+    uniformly)."""
+    g = torch.Generator(device=dev).manual_seed(nk)
+    q, k, v = (torch.randn(b, n, heads * 32, generator=g, device=dev).mul(
+        s).to(torch.bfloat16) for n, s in ((nq, 4.0), (nk, 1.0), (nk, 1.0)))
+    masked = torch.rand(b, nk, generator=g, device=dev) < 0.25
+    if all_masked_row and b > 1:
+        masked[-1] = True
+    return q, k, v, torch.where(masked, NEG_INF, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,nq,nk", [(2, 8, 900, 36400),
+                                           (2, 8, 900, 44400),
+                                           (2, 8, 900, 1000),
+                                           (1, 2, 193, 129), (2, 1, 5, 3)])
+def test_attention_tc_kernel_matches_plain(b, heads, nq, nk):
+    """Kernel 3's tensor-core route (bf16, Dh 32) at the fusion path's
+    memories and small ragged sizes (one key tile, a query tile of one
+    row, under a 16-key slice): within 2e-2 of max |plain|, the launch
+    counted at its shape."""
+    dev = cuda_device()
+    q, k, v, kb = _packed_tc_inputs(dev, b, nq, nk, heads)
+    before = dict(_build.launch_shapes)
+    got = flash_attention_packed(q, k, v, kb, heads)
+    shape = ("flash_attention_packed", (nq, nk, heads, 32))
+    assert _build.launch_shapes[shape] == before.get(shape, 0) + 1
+    want = flash_attention_packed_reference(q, k, v, kb, heads)
+    _assert_rel(got, want, 2e-2)
+    if b > 1:  # the fully masked row: the uniform average of V
+        _assert_rel(got[-1], want[-1], 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [44400, 1000])
+def test_attention_tc_kernel_is_deterministic(nk):
+    """The split-KV partials are merged in a fixed order: two calls give
+    the same bits."""
+    dev = cuda_device()
+    q, k, v, kb = _packed_tc_inputs(dev, 1, 900, nk, 8)
+    first = flash_attention_packed(q, k, v, kb, 8)
+    assert torch.equal(first, flash_attention_packed(q, k, v, kb, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("nk", [44400, 1001])
+def test_train_backward_tc_kernel_at_full_width(rate, nk):
+    """Kernel 8's tensor-core route at the train step's 1540 queries x 8
+    heads x 32 in bf16, a quarter of the keys masked, on the plain
+    forward's (out, m, l): dq, dk, dv and d(k_bias) within 2e-2 of max
+    |plain| (the dropout-0.1 case agrees only if the keep bits are
+    `dropout_keep`'s); dq and d(k_bias) bit-equal across two calls; without
+    d(k_bias) the same dq, dk, dv."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(nk)
+    b, h, nq = 1, 8, 1540
+    q, k, v = (torch.randn(b, n, h * 32, generator=g, device=dev).mul(
+        s).to(torch.bfloat16).view(b, n, h, 32).transpose(1, 2)
+        for n, s in ((nq, 4.0), (nk, 1.0), (nk, 1.0)))
+    kb = torch.where(torch.rand(b, nk, generator=g, device=dev) < 0.25,
+                     NEG_INF, 0.0)
+    out, m, l = flash_attention_kvmask_reference(q, k, v, kb, True, rate, 5)
+    dout = torch.randn(b, h, nq, 32, generator=g, device=dev).to(
+        torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, kb, out, m, l, dout, rate, 5)
+    want = flash_attention_bwd_reference(q, k, v, kb, out, m, l, dout, rate,
+                                         5)
+    for a, r in zip(got, want):
+        _assert_rel(a, r, 2e-2)
+    again = flash_attention_bwd(q, k, v, kb, out, m, l, dout, rate, 5)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[3], again[3])
+    no_kb = flash_attention_bwd(q, k, v, kb, out, m, l, dout, rate, 5, False)
+    assert no_kb[3] is None
+    for a, r in zip(no_kb[:3], got):
+        assert torch.equal(a, r)
 
 
 # kernel 4/5 shapes on the card: stage 5 of one view (under one wave, W not
