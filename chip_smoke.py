@@ -15,10 +15,13 @@ Phases, each raising on failure (the script then exits non-zero):
      eval modules hold them, and its wrappers' host cost per launch;
      kernel 6 likewise at all 14 of the fusion path's OSA aggregate shapes;
      kernel 3 at 900 queries x the fusion path's 44400 and 36400 and the
-     LiDAR path's 32400 keys, two calls bit-equal; kernels 7 and 8 at the
-     train step's cross-attentions, 1540 queries x 44400 and 36400 keys at
-     dropout 0.1 and x 44400 at 0, dq and d(k_bias) bit-equal across two
-     calls; all with a quarter of the keys at NEG_INF), in bfloat16 (and
+     LiDAR path's 32400 keys, two calls bit-equal, its wrapper's host us
+     a launch; kernels 7 and 8 at the train step's cross-attentions, 1540
+     queries x 44400 and 36400 keys at dropout 0.1 and x 44400 at 0,
+     kernel 7's out, m and l and kernel 8's dq and d(k_bias) bit-equal
+     across two calls, and at dropout 0.1 kernel 7's (out, m, l) through
+     kernel 8 against the plain forward and backward; all with a quarter
+     of the keys at NEG_INF), in bfloat16 (and
      float32 at one or two cases a kernel), with error, tolerance and
      time, beside the least time the card could take for the same work
      (bytes over 3.35 TB/s, bf16 operations over 989 TFLOP/s, or for the
@@ -28,7 +31,8 @@ Phases, each raising on failure (the script then exits non-zero):
      (kernel 9) at the vehicle cloud's gather stage-0 submanifold map (its
      voxel ids as keys, 27 tap columns as queries) and its level-0 pillar
      map (9 taps), and the row copy (kernel 10) at (40960, 768) in bfloat16
-     and float32, both bit-equal to their plain versions;
+     and float32, both bit-equal to their plain versions, kernel 10 also
+     timed in turns with clone() over 21 repeats (medians and IQRs);
   4. the eval main paths, each through `build_detector` at full width in
      bfloat16 with seeded random weights, on the benchmark batch (two
      65536-point ray-cast clouds, seed 0): `cmt_lidar_coop_tumtraf`, the
@@ -146,7 +150,7 @@ SOURCES = {
                         "cmtcoop_tpu/ops/pillar_fused.py:328"),
     "pillar_conv_kb1": ("cmtcoop_tpu_torch/csrc/pillar_conv.cu",
                         "cmtcoop_tpu/ops/pillar_fused.py:198"),
-    "flash_attention_packed": ("cmtcoop_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_packed": ("cmtcoop_tpu_torch/csrc/flash_train.cu",
                                "cmtcoop_tpu/ops/attention.py:214"),
     "conv3x3_bn_relu": ("cmtcoop_tpu_torch/csrc/conv3x3.cu",
                         "cmtcoop_tpu/ops/conv_cf.py:89"),
@@ -173,14 +177,17 @@ IMPLS = {
     "pillar_conv_kb9": "CUDA cores",
     "pillar_conv_kb1": "CUDA cores",
     "flash_attention_packed": "bf16 Dh 32: tensor cores, wgmma + TMA "
-                              "(flash_tc::packed_tc_kernel, split-KV "
-                              "merge); float32: CUDA cores",
+                              "(kernel 7's fwd_tc::fwd_kernel on views, "
+                              "dropout off, split-KV, merge_kernel); "
+                              "float32: CUDA cores (flash_attention.cu)",
     "conv3x3_bn_relu": "bf16: tensor cores, wgmma + TMA; float32: CUDA "
                        "cores",
     "conv3x3_bn_relu_resid": "bf16: tensor cores, wgmma + TMA; float32: "
                              "CUDA cores",
     "osa_aggregate": "bf16: tensor cores, wgmma + TMA; float32: CUDA cores",
-    "flash_train_fwd": "CUDA cores",
+    "flash_train_fwd": "bf16 Dh 32: tensor cores, wgmma + TMA "
+                       "(fwd_tc::fwd_kernel, split-KV, merge_kernel in "
+                       "split order); float32: CUDA cores",
     "flash_train_bwd_dq": "bf16 Dh 32: tensor cores, wgmma + TMA "
                           "(bwd_tc::dq_kernel, split keys); float32: CUDA "
                           "cores",
@@ -479,6 +486,13 @@ def kernel_phases(lv, results, dev):
                                  "differ")
         log(f"kernel flash_attention_packed [q900 k{nk}] bfloat16: two calls "
             "bit-equal")
+        if i == 0:  # the wrapper's host cost a launch: eval is host-bound
+            us = host_us(lambda: flash_attention_packed(qb, kb16, vb, kbias,
+                                                        8))
+            results["flash_attention_packed"]["host_us_per_launch"] = dict(
+                wrapper=us)
+            log(f"kernel flash_attention_packed host us per launch (q900 "
+                f"k{nk}, bfloat16): {us:.1f}")
         del q, k, v, qb, kb16, vb, first
 
     # kernels 4 and 5 are timed as the main path calls them: on operands
@@ -672,6 +686,9 @@ def train_kernel_phases(results, dev):
                 info=info,
                 library=lambda q_, k_, v_, kb_, st, r, sd: lambda: sdpa(
                     q_, k_, v_, kb_, r))
+        train_forward_checks(ta, results, note, (*views(torch.bfloat16, q,
+                                                        k, v), kb),
+                             views(torch.bfloat16, dout)[0], rate, seed)
 
         prepared = {}
 
@@ -711,6 +728,57 @@ def train_kernel_phases(results, dev):
             "bit-equal across two calls")
         del q, k, v, dout, prepared, args, a, dq0, dkb0
         torch.cuda.empty_cache()
+
+
+def train_forward_checks(ta, results, note, qkv_kb, dout, rate, seed):
+    """Kernel 7's bf16 route beyond `compare`: the one tile it is built at
+    (`plan`, `plans_ms`: the case's own time); out, m and l bit-equal
+    across two calls; and, with dropout, its (out, m, l) fed to kernel 8
+    against the plain forward and backward (dq, dk, dv and d(k_bias), each
+    within TOL of its max |plain|)."""
+    case = results["flash_train_fwd"]["cases"][-1]
+    case["plan"] = "{}x{}".format(*ta.FWD_TC_TILE)
+    case["plans_ms"] = {case["plan"]: case["ms"]}
+    first = ta.flash_attention_kvmask(*qkv_kb, True, rate, seed)
+    again = ta.flash_attention_kvmask(*qkv_kb, True, rate, seed)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"flash_train_fwd {note}: two calls differ")
+    log(f"kernel flash_train_fwd [{note}] bfloat16: out, m and l bit-equal "
+        "across two calls")
+    if rate == 0.0:
+        return
+    got = ta.flash_attention_bwd(*qkv_kb, *first, dout, rate, seed)
+    plain = ta.flash_attention_kvmask_reference(*qkv_kb, True, rate, seed)
+    want = ta.flash_attention_bwd_reference(*qkv_kb, *plain, dout, rate,
+                                            seed)
+    rel = [float((g.float() - w.float()).abs().max())
+           / max(float(w.float().abs().max()), 1e-30)
+           for g, w in zip(got, want)]
+    log(f"kernels flash_train_fwd -> flash_train_bwd [{note}] bfloat16 "
+        "against the plain forward and backward: max_rel_err dq "
+        "{:.3e}, dk {:.3e}, dv {:.3e}, dk_bias {:.3e} (tol {:g})".format(
+            *rel, TOL["bfloat16"]))
+    case["chain_max_rel_err"] = dict(zip(("dq", "dk", "dv", "dk_bias"), rel))
+    if max(rel) > TOL["bfloat16"]:
+        raise AssertionError(f"kernel 7 -> kernel 8 {note} disagrees with "
+                             "the plain forward and backward")
+
+
+def interleaved_ms(fns, repeats=21, iters=20):
+    """{name: ms per call of each repeat} for the calls in `fns`, timed in
+    turns (one `cuda_ms` of each a repeat), so that a drift of the card's
+    clock falls on all of them alike."""
+    times = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, iters=iters))
+    return times
+
+
+def median_iqr(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2], xs[(3 * n) // 4] - xs[n // 4]
 
 
 def compare_exact(name, note, kernel, plain, args, results, library):
@@ -789,9 +857,23 @@ def exact_kernel_phases(ext, batch, level0, results):
     x = torch.randn(40960, 768, generator=gen, device=keys.device)
     for dt in (torch.bfloat16, torch.float32):
         xd = x.to(dt)
-        compare_exact("rows_copy", f"(40960, 768) {str(dt).split('.')[-1]}",
-                      pin_rows, pin_rows_reference, (xd,), results,
-                      lambda: xd.clone)
+        note = f"(40960, 768) {str(dt).split('.')[-1]}"
+        compare_exact("rows_copy", note, pin_rows, pin_rows_reference, (xd,),
+                      results, lambda: xd.clone)
+        # the re-measurement against clone(): both timed in turns, the
+        # medians and interquartile ranges of 21 repeats
+        t = interleaved_ms({"kernel": lambda: pin_rows(xd),
+                            "clone": xd.clone})
+        (km, kiqr), (cm, ciqr) = median_iqr(t["kernel"]), median_iqr(
+            t["clone"])
+        results["rows_copy"]["cases"][-1]["interleaved"] = dict(
+            repeats=len(t["kernel"]), kernel_median_ms=km, kernel_iqr_ms=kiqr,
+            clone_median_ms=cm, clone_iqr_ms=ciqr)
+        log(f"kernel rows_copy [{note}] interleaved with clone(), "
+            f"{len(t['kernel'])} repeats: kernel median {km:.4f} ms (IQR "
+            f"{kiqr:.4f}), clone {cm:.4f} ms (IQR {ciqr:.4f}); the kernel "
+            + ("loses by more than the spread" if km - cm > max(kiqr, ciqr)
+               else "is no slower than clone() within the spread"))
 
 
 def telemetry(model, batch):

@@ -46,7 +46,6 @@ _SIGNATURES = {
     "cmt_pillar_conv_kb1": _PILLAR_ARGS,
     "cmt_pillar_occ_fold": [_P] * 3 + [_I] * 8 + [_P],
     "cmt_flash_attention_packed": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
-    "cmt_flash_attention_packed_tc": [_P] * 7 + [_I] * 6 + [_P],
     "cmt_wgmma_selftest": [_I] + [_P] * 6,
     "cmt_conv3x3_bn_relu_f32": [_P] * 6 + [_I] * 7 + [_P],
     "cmt_conv3x3_tc_weight_map": [_P, _I, _I, _I, _P],

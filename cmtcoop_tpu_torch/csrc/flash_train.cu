@@ -1,6 +1,8 @@
 // Training attention on (B, H, N, Dh) views: kernel 7 (the forward, with
 // the (m, l) statistics and in-kernel dropout) and kernel 8 (its
 // FlashAttention-2 backward, two launches: dQ, then dK / dV / d(k_bias)).
+// Kernel 7's bf16 Dh-32 forward (`fwd_tc`) also runs kernel 3, the eval
+// attention, with dropout off.
 //
 // Replace `_flash_kernel` (cmtcoop_tpu/ops/attention.py:73, with
 // `_dropout_keep` / `_seed_tile`), `_flash_bwd_dq_kernel` (:309) and
@@ -38,13 +40,13 @@
 // for the dQ pass and 140 for the dK/dV pass (0.071, 0.106 and 0.142 ms at
 // the H100's 989 bf16 TFLOP/s); the dropout hash adds about ten integer
 // operations a score. chip_smoke.py prints both floors beside the measured
-// times. The forward and the float32 (and Dh 8) backward run every product
-// on the CUDA cores in float32 with register tiles (4 x 4 scores and 4 x
-// Dh/16 outputs per thread) fed from shared memory: tiles of 64 queries x
-// 64 keys, 256 threads; the forward and the dQ pass walk the keys for one
-// (bh, 64-query) tile, the dK/dV pass walks the queries for one (bh,
-// 64-key) tile, so no reduction crosses blocks. The bf16 Dh-32 backward
-// runs on the tensor cores (`bwd_tc` below).
+// times. In float32 and at Dh 8 both kernels run every product on the CUDA
+// cores in float32 with register tiles (4 x 4 scores and 4 x Dh/16 outputs
+// per thread) fed from shared memory: tiles of 64 queries x 64 keys, 256
+// threads; the forward and the dQ pass walk the keys for one (bh, 64-query)
+// tile, the dK/dV pass walks the queries for one (bh, 64-key) tile, so no
+// reduction crosses blocks. In bf16 at Dh 32 both run on the tensor cores
+// (`bwd_tc` and `fwd_tc` below).
 #include <string.h>
 
 #include <type_traits>
@@ -69,6 +71,12 @@ struct FlashArgs {
   // partials (dq_splits, B, Nq, H, Dh) in `dq_part`
   float* dq_part;
   long long dq_splits, dq_tiles_per_split;
+  // the bf16 Dh-32 forward: its key walk split into `splits` ranges of
+  // `tiles_per_split` 128-key tiles; with more than one, float32 partials
+  // (splits, B*H, Nq, Dh) of the unnormalised O in `o_part` and their
+  // (m log2 e, l) (splits, B*H, Nq, 2) in `ml_part`
+  float *o_part, *ml_part;
+  long long splits, tiles_per_split;
 };
 
 namespace {
@@ -89,11 +97,20 @@ __device__ __forceinline__ unsigned row_hash(unsigned seed, unsigned bh,
   return fmix32(fmix32(seed + bh * 0x9E3779B9u) ^ (i * 0x85EBCA77u));
 }
 
+constexpr unsigned KEY_MUL = 0xC2B2AE3Du;  // the keep hash's key term
+
+// whether element (row, key) is kept, `jm` the key's term j * KEY_MUL (the
+// tensor-core passes add it incrementally along a row)
+__device__ __forceinline__ bool kept(unsigned rh, unsigned jm,
+                                     unsigned thresh) {
+  return fmix32(rh ^ jm) >= thresh;
+}
+
 // keep factor of element (row, j): keep_scale or 0
 __device__ __forceinline__ float keep_factor(unsigned rh, unsigned j,
                                              unsigned thresh,
                                              float keep_scale) {
-  return fmix32(rh ^ (j * 0xC2B2AE3Du)) >= thresh ? keep_scale : 0.f;
+  return kept(rh, j * KEY_MUL, thresh) ? keep_scale : 0.f;
 }
 
 template <int DH>
@@ -536,15 +553,24 @@ __global__ void __launch_bounds__(NT) flash_train_bwd_dkv_kernel(FlashArgs a) {
 // The keep bit is the one above: a row hash per query, computed once, and
 // j * 0xC2B2AE3D per key, incremental along a row. P and dS enter their
 // products as bf16 (float32 accumulators).
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// (batch, head, row) strides -> cmt_head_map's (row, head, batch), a box of
+// `rows` rows
+static bool map_of(CUtensorMap* map, const void* ptr, const long long (&s)[3],
+                   long long n, const FlashArgs& a, int rows = 64) {
+  const long long st[3] = {s[2], s[1], s[0]};
+  return cmt_head_map(map, ptr, n, a.H, a.B, st, rows);
+}
+
 namespace bwd_tc {
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WG = 2;                    // consumer warpgroups
 constexpr int ROWS = 64 * WG;            // a block's queries (dQ) or keys
 constexpr int TILE = 64 * 64;            // 64 rows x 64 B
 constexpr int STAGES = 4;
 constexpr int THREADS = 128 * WG + 32;   // + the producer warp
-constexpr unsigned KEY_MUL = 0xC2B2AE3Du;
 
 struct Maps {
   CUtensorMap q, k, v, dout;  // box (32, 64) each
@@ -637,11 +663,6 @@ __device__ __forceinline__ void rs_product(float (&d)[16],
   const uint64_t bd = cmt_sw64_mn_desc(tile);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) cmt_wgmma_rs32(d, a[kk], bd + 64 * kk);
-}
-
-__device__ __forceinline__ float keep_of(unsigned rh, unsigned jm,
-                                         unsigned thresh, float keep_scale) {
-  return fmix32(rh ^ jm) >= thresh ? keep_scale : 0.f;
 }
 
 // a 64-row warpgroup's accumulator (rows r0 and r0 + 8, columns 8j + 2
@@ -758,8 +779,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 m2[hh]) * il[hh];
         float dpv = dp[4 * j + e];
         if (DROP)
-          dpv *= keep_of(rh[hh], jm0 + (unsigned)(8 * j + c) * KEY_MUL,
-                         thresh, keep_scale);
+          dpv *= kept(rh[hh], jm0 + (unsigned)(8 * j + c) * KEY_MUL, thresh)
+                     ? keep_scale
+                     : 0.f;
         sc[4 * j + e] = p * (dpv - dl[hh]);  // dS
       }
     }
@@ -895,8 +917,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float p = cmt_ex2(fmaf(sc[4 * j + e], scale2, bias2[hh]) - q.x) *
                         q.y;
         const float kf =
-            DROP ? keep_of(__float_as_uint(q.w), km[hh], thresh, keep_scale)
-                 : 1.f;
+            !DROP ? 1.f
+            : kept(__float_as_uint(q.w), km[hh], thresh) ? keep_scale
+                                                        : 0.f;
         const float g = p * (dp[4 * j + e] * kf - q.z);  // dS^T
         sc[4 * j + e] = p * kf;                          // dropout(P)^T
         dp[4 * j + e] = g;
@@ -932,13 +955,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     g += __shfl_xor_sync(0xffffffffu, g, 2);
     if (quad == 0 && rows[hh] < nk) a.dkb[(size_t)bh * nk + rows[hh]] = g;
   }
-}
-
-// (batch, head, row) strides -> cmt_head_map's (row, head, batch)
-static bool map_of(CUtensorMap* map, const void* ptr, const long long (&s)[3],
-                   long long n, const FlashArgs& a) {
-  const long long st[3] = {s[2], s[1], s[0]};
-  return cmt_head_map(map, ptr, n, a.H, a.B, st, 64);
 }
 
 template <bool DROP>
@@ -982,6 +998,362 @@ int launch(bool dq_pass, const FlashArgs& a, cudaStream_t st) {
 
 }  // namespace bwd_tc
 
+// -------------- kernels 7 and 3, bfloat16 at Dh 32: tensor cores ------------
+//
+// The forward with kernel 8's keep bit. It is also kernel 3 (the eval
+// attention, `_flash_kernel_packed`) in bf16 at Dh 32: ops/attention.py
+// `flash_attention_packed` launches it on (B, H, N, Dh) views of its packed
+// (B, N, H*Dh) projections, dropout off, no (m, l). One producer warp
+// streams the range's K and V tiles by TMA (the 4D per-head maps over the
+// strided views, 64-byte swizzle, zeros past Nk) into a ring of four
+// stages, its lanes storing each tile's bias x log2 e beside it (-inf past
+// Nk, so those keys are absent). Consumer warpgroups own 64 queries each: S = Q K^T by wgmma from shared
+// memory; the online softmax in registers in the log2 domain (s2 = s scale
+// log2 e + bias log2 e, kernel 8's formula, the max started at NEG_INF
+// log2 e); l sums every P in float32; the keep bit (the row hash once per
+// row, the key term j * KEY_MUL added along the row) zeroes the dropped P
+// before it is packed to bf16, and 1 / (1 - rate) scales O once at the end;
+// O += P V by the register-A form, V read MN-major from its tile. Rows past
+// Nq are computed on TMA's zeros and never stored; a warpgroup with no real
+// row drains the ring. A tile's P V stays in flight under the next tile's
+// scores; ptxas then serialises the wgmma for registers (C7512: the producer
+// warp makes the block count as four warpgroups), yet 192 queries x 128 keys
+// measured fastest of four tiles (128 or 192 queries x 64 or 128 keys) at
+// the train step's shapes, as it did for kernel 3's memories (PERF.md).
+//   Grid fill: 1540 queries are 9 blocks of 192 a head, 72 at batch 1,
+// under one wave of 132 SMs, so the key walk is split
+// (ops/attention.py `split_plan`): each split writes its unnormalised float32
+// O and (m2, l), and `merge_kernel` combines them in split order, so the
+// result is deterministic. With one split the block writes out, m and l.
+//   The (m, l) contract with kernel 8, which scales m back by log2 e: the
+// written m is m2 ln 2 moved by an ulp or two until m log2 e gives m2 back
+// (`natural_max`), so the backward's recomputed 2^(s2 - m log2 e) is the
+// forward's own P even where m2 is a fully masked row's -1e9 log2 e, whose
+// ulp (128) would otherwise turn P into 2^(+-128).
+//   What bounds it: one exponential a score (0.140 ms at q1540 x k44400 x 8
+// heads) over the tensor cores' 0.071 ms; at dropout 0.1 the keep hash's ~10
+// integer operations a score on the ALU and IMAD pipes beside them.
+namespace fwd_tc {
+
+// a block's tile, ops/attention.py `FWD_TC_TILE`: WG x 64 queries, BK keys
+// a walked tile
+constexpr int WG = 3;                      // consumer warpgroups
+constexpr int BK = 128;
+constexpr int STAGES = 4;
+constexpr int THREADS = 128 * WG + 32;     // + the producer warp
+constexpr int Q_BYTES = 64 * 64;           // a warpgroup's 64 queries x 64 B
+constexpr int KV_BYTES = BK * 64;          // one K or V tile
+// from a 1024-byte aligned base: the queries, the ring of (K, V) stages,
+// each stage's scaled bias, the barriers
+constexpr int OFF_KV = WG * Q_BYTES;
+constexpr int OFF_BIAS = OFF_KV + STAGES * 2 * KV_BYTES;
+constexpr int OFF_BAR = OFF_BIAS + STAGES * BK * 4;
+constexpr int SMEM = 1024 + OFF_BAR + (2 * STAGES + 1) * 8;
+
+struct Maps {
+  CUtensorMap q, k, v;  // box (32, 64) for q, (32, BK) for k and v
+};
+
+// the natural-log max written for the backward: m2 ln 2, or the float
+// within two ulps of it whose product with log2 e lies nearest m2
+__device__ __forceinline__ float natural_max(float m2) {
+  float best = __fmul_rn(m2, LN2);
+  float err = fabsf(__fmul_rn(best, LOG2E) - m2);
+  float up = best, dn = best;
+  for (int t = 0; t < 2; ++t) {
+    up = nextafterf(up, INFINITY);
+    dn = nextafterf(dn, -INFINITY);
+    const float eu = fabsf(__fmul_rn(up, LOG2E) - m2);
+    const float ed = fabsf(__fmul_rn(dn, LOG2E) - m2);
+    if (eu < err) best = up, err = eu;
+    if (ed < err) best = dn, err = ed;
+  }
+  return best;
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_kernel(const __grid_constant__ Maps maps, const FlashArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = cmt_smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* bias_s =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + OFF_BIAS);
+  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES;
+  const uint32_t qbar = empty + 8 * STAGES;
+
+  const int nq = (int)a.nq, nk = (int)a.nk, H = (int)a.H;
+  const int q0 = blockIdx.x * 64 * WG, split = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / H, h = bh - b * H;
+  const int tps = (int)a.tiles_per_split, t0 = split * tps;
+  const int n_tiles = min((nk + BK - 1) / BK, t0 + tps) - t0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's expect_tx arrive and its 32 lanes' arrives
+      cmt_mbar_init(full + 8 * s, 33);
+      cmt_mbar_init(empty + 8 * s, 128 * WG);
+    }
+    cmt_mbar_init(qbar, 1);
+    cmt_mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == WG) {  // producer: Q once, then K, V and bias a tile
+    if (lane == 0) {
+      cmt_mbar_expect_tx(qbar, WG * Q_BYTES);
+      for (int w = 0; w < WG; ++w)
+        cmt_tma_load_4d(base + w * Q_BYTES, &maps.q, qbar, 0, q0 + 64 * w,
+                        h, b);
+    }
+    const float* kbias = a.kbias + (size_t)b * nk;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES, k0 = (t0 + i) * BK;
+      cmt_mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t kv = base + OFF_KV + s * 2 * KV_BYTES;
+        cmt_mbar_expect_tx(full + 8 * s, 2 * KV_BYTES);
+        cmt_tma_load_4d(kv, &maps.k, full + 8 * s, 0, k0, h, b);
+        cmt_tma_load_4d(kv + KV_BYTES, &maps.v, full + 8 * s, 0, k0, h,
+                        b);
+      }
+      for (int e = lane; e < BK; e += 32)
+        bias_s[s * BK + e] =
+            k0 + e < nk ? kbias[k0 + e] * LOG2E : -INFINITY;
+      cmt_mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+  if (q0 + wg * 64 >= nq) {  // no real row: free each stage unread
+    for (int i = 0; i < n_tiles; ++i) {
+      cmt_mbar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
+      cmt_mbar_arrive(empty + 8 * (i % STAGES));
+    }
+    return;
+  }
+
+  // rows r0 = 16 warp + lane/4 and r0 + 8 of the warpgroup's 64; columns
+  // 8j + 2 quad + {0, 1} of a score tile
+  const int warp = (threadIdx.x % 128) / 32, quad = lane & 3;
+  const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
+  const int rows[2] = {r0, r0 + 8};
+  unsigned rh[2] = {0u, 0u};
+  if (DROP) {
+    rh[0] = row_hash((unsigned)a.seed, bh, rows[0]);
+    rh[1] = row_hash((unsigned)a.seed, bh, rows[1]);
+  }
+  const unsigned thresh = (unsigned)a.thresh;
+  const float scale2 = (float)a.scale * LOG2E;
+  const uint64_t qd = cmt_sw64_desc(base + wg * Q_BYTES);
+  float o[16], sc[BK / 2];
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i) pa[i][0] = pa[i][1] = pa[i][2] = pa[i][3] = 0u;
+  float m[2] = {CMT_NEG_INF * LOG2E, CMT_NEG_INF * LOG2E}, l[2] = {0.f, 0.f};
+  cmt_mbar_wait(qbar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES, k0 = (t0 + i) * BK;
+    const uint32_t kv = base + OFF_KV + s * 2 * KV_BYTES;
+    cmt_mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    // S = Q K^T over Dh = two 16-deep slices (+32 B)
+    const uint64_t kd = cmt_sw64_desc(kv);
+    cmt_fence_regs(sc);
+    cmt_wgmma_fence();
+    Wgmma<BK>::mma(sc, qd, kd, 0);
+    Wgmma<BK>::mma(sc, qd + 2, kd + 2);
+    cmt_wgmma_commit();
+    cmt_wgmma_wait<0>();  // and the previous tile's P V
+    cmt_fence_regs(sc);
+    cmt_fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) cmt_fence_regs(pa[kk]);
+    if (i > 0) cmt_mbar_arrive(empty + 8 * ((i - 1) % STAGES));
+
+    const float* bs = bias_s + s * BK;
+    float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(bs + 8 * j + 2 * quad);
+      sc[4 * j] = fmaf(sc[4 * j], scale2, bb.x);
+      sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale2, bb.y);
+      sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale2, bb.x);
+      sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale2, bb.y);
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int d = 1; d < 4; d *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+    }
+    const float a0 = cmt_ex2(m[0] - mx0), a1 = cmt_ex2(m[1] - mx1);
+    m[0] = mx0;
+    m[1] = mx1;
+    // P, its full sum, then the keep bit: hash of (row, key k0 + 8j + 2quad
+    // + c), the key term jm0 + (8j + c) KEY_MUL
+    const unsigned jm0 = (unsigned)(k0 + 2 * quad) * KEY_MUL;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const float p = cmt_ex2(sc[4 * j + e] - (hh ? mx1 : mx0));
+        if (hh)
+          s1 += p;
+        else
+          s0 += p;
+        sc[4 * j + e] =
+            !DROP || kept(rh[hh], jm0 + (unsigned)(8 * j + (e & 1)) * KEY_MUL,
+                          thresh)
+                ? p
+                : 0.f;
+      }
+    }
+    l[0] = l[0] * a0 + s0;  // this lane's columns; summed over the quad
+    l[1] = l[1] * a1 + s1;  // at the end
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = cmt_pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = cmt_pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = cmt_pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = cmt_pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    // O += P V: V MN-major, 16 keys (1024 B) a slice
+    const uint64_t vd = cmt_sw64_mn_desc(kv + KV_BYTES);
+    cmt_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      cmt_wgmma_rs32(o, pa[kk], vd + 64 * kk);
+    cmt_wgmma_commit();
+  }
+  cmt_wgmma_wait<0>();
+  cmt_fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) cmt_fence_regs(pa[kk]);
+#pragma unroll
+  for (int d = 1; d < 4; d *= 2) {
+    l[0] += __shfl_xor_sync(0xffffffffu, l[0], d);
+    l[1] += __shfl_xor_sync(0xffffffffu, l[1], d);
+  }
+
+  const float ks = DROP ? (float)a.keep_scale : 1.f;
+  const int c = H * 32;
+  if (a.splits == 1) {
+    __nv_bfloat16* out =
+        (__nv_bfloat16*)a.out + (size_t)b * nq * c + h * 32 + 2 * quad;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (rows[hh] >= nq) continue;
+      const float mul = ks / fmaxf(l[hh], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)rows[hh] * c +
+                                           8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hh] * mul,
+                                  o[4 * j + 2 * hh + 1] * mul);
+      if (a.m_out != nullptr && quad == 0) {
+        a.m_out[(size_t)bh * nq + rows[hh]] = natural_max(m[hh]);
+        a.l_out[(size_t)bh * nq + rows[hh]] = l[hh];
+      }
+    }
+    return;
+  }
+  const size_t at = ((size_t)split * gridDim.z + bh) * nq;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (rows[hh] >= nq) continue;
+    float* op = a.o_part + (at + rows[hh]) * 32 + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j) =
+          make_float2(o[4 * j + 2 * hh] * ks, o[4 * j + 2 * hh + 1] * ks);
+    if (quad == 0)
+      *reinterpret_cast<float2*>(a.ml_part + (at + rows[hh]) * 2) =
+          make_float2(m[hh], l[hh]);
+  }
+}
+
+// out[b, q, h*32 + d] from the splits' partials, merged in split order: M =
+// max m2_s, L = sum l_s 2^(m2_s - M), O = sum O_s 2^(m2_s - M) / max(L,
+// 1e-30); the row's first lane writes m = natural_max(M) and l = L. One
+// thread an output element.
+__global__ void merge_kernel(const float* __restrict__ opart,
+                             const float* __restrict__ ml,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ m_out,
+                             float* __restrict__ l_out, int bh_n, int nq,
+                             int heads, int splits) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t total = (size_t)bh_n * nq * 32;
+  if (idx >= total) return;
+  const int d = idx % 32;
+  size_t t = idx / 32;
+  const int h = t % heads;
+  t /= heads;
+  const int q = t % nq;
+  const int b = (int)(t / nq);
+  const size_t row = ((size_t)b * heads + h) * nq + q;
+  const size_t stride = (size_t)bh_n * nq;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[(s * stride + row) * 2]);
+  float den = 0.f, num = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const size_t at = s * stride + row;
+    const float w = cmt_ex2(ml[at * 2] - mx);
+    den += ml[at * 2 + 1] * w;
+    num += opart[at * 32 + d] * w;
+  }
+  out[idx] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+  if (m_out != nullptr && d == 0) {
+    m_out[row] = natural_max(mx);
+    l_out[row] = den;
+  }
+}
+
+template <bool DROP>
+int launch(const FlashArgs& a, cudaStream_t st) {
+  const long long tps = a.tiles_per_split;
+  if (tps <= 0 || a.splits != ((a.nk + BK - 1) / BK + tps - 1) / tps ||
+      (a.splits > 1 && (a.o_part == nullptr || a.ml_part == nullptr)) ||
+      (a.m_out == nullptr) != (a.l_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!map_of(&maps.q, a.q, a.sq, a.nq, a) ||
+      !map_of(&maps.k, a.k, a.sk, a.nk, a, BK) ||
+      !map_of(&maps.v, a.v, a.sv, a.nk, a, BK))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set[CMT_MAX_DEVICES] = {};
+  cudaError_t err = cmt_allow_smem(fwd_kernel<DROP>, SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((a.nq + 64 * WG - 1) / (64 * WG)),
+                  (unsigned)a.splits, (unsigned)(a.B * a.H));
+  fwd_kernel<DROP><<<grid, THREADS, SMEM, st>>>(maps, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const size_t total = (size_t)a.B * a.H * a.nq * 32;
+  merge_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      a.o_part, a.ml_part, (__nv_bfloat16*)a.out, a.m_out, a.l_out,
+      (int)(a.B * a.H), (int)a.nq, (int)a.H, (int)a.splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd_tc
+
 // dynamic shared memory of each kernel, in floats
 template <int DH>
 constexpr int fwd_smem() {
@@ -1000,21 +1372,21 @@ enum class Pass { kFwd, kDq, kDkv };
 
 template <typename T, int DH, bool DROP>
 int launch(Pass pass, const FlashArgs& a, cudaStream_t st) {
-  const int bh = (int)(a.B * a.H);
-  if (pass == Pass::kFwd) {
-    const dim3 grid((unsigned)((a.nq + BQ - 1) / BQ), bh);
-    const size_t bytes = fwd_smem<DH>() * sizeof(float);
-    auto fn = flash_train_fwd_kernel<T, DH, DROP>;
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)bytes);
-    fn<<<grid, NT, bytes, st>>>(a);
-    return (int)cudaGetLastError();
-  }
-  // bf16 at Dh 32: the backward is the tensor-core route's (bwd_tc)
+  // bf16 at Dh 32: the tensor-core routes (fwd_tc, bwd_tc)
   if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == 32) {
-    return bwd_tc::launch<DROP>(pass == Pass::kDq, a, st);
+    return pass == Pass::kFwd
+               ? fwd_tc::launch<DROP>(a, st)
+               : bwd_tc::launch<DROP>(pass == Pass::kDq, a, st);
   } else {
-    if (pass == Pass::kDq) {
+    const int bh = (int)(a.B * a.H);
+    if (pass == Pass::kFwd) {
+      const dim3 grid((unsigned)((a.nq + BQ - 1) / BQ), bh);
+      const size_t bytes = fwd_smem<DH>() * sizeof(float);
+      auto fn = flash_train_fwd_kernel<T, DH, DROP>;
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      fn<<<grid, NT, bytes, st>>>(a);
+    } else if (pass == Pass::kDq) {
       const dim3 grid((unsigned)((a.nq + BQ - 1) / BQ), bh);
       const size_t bytes = dq_smem<DH>() * sizeof(float);
       auto fn = flash_train_bwd_dq_kernel<T, DH, DROP>;

@@ -2,7 +2,8 @@
 package's (B, H, N, Dh) layout at the public functions unless said.
 
 - `flash_attention_packed`: eval attention on head-packed (B, N, H*Dh)
-  projections, kernel 3 (csrc/flash_attention.cu).
+  projections, kernel 3 (csrc/flash_attention.cu; in bf16 at Dh 32 the
+  tensor-core forward it shares with kernel 7, csrc/flash_train.cu).
 - `flash_attention_kvmask`: the training forward with a per-key bias,
   in-kernel inverted dropout and optional (m, l) statistics, kernel 7;
   `flash_attention_bwd`: its FlashAttention-2 backward, kernel 8 (a dQ
@@ -13,7 +14,7 @@ package's (B, H, N, Dh) layout at the public functions unless said.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 hand-written CUDA kernel for a CUDA tensor. In bfloat16 at Dh 32 (the
-presets' 256 / 8 heads) kernel 3 and kernel 8 run on the tensor cores
+presets' 256 / 8 heads) kernels 3, 7 and 8 run on the tensor cores
 (wgmma fed by TMA), their key range split across blocks by `split_plan`;
 float32 and the tiny presets' head widths take the CUDA-core kernels. The
 kernels mask the ragged query and key edges themselves, so callers pad
@@ -44,13 +45,12 @@ from cmtcoop_tpu_torch.ops.conv_cf import sm_count
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
 TRAIN_HEAD_DIMS = (8, 32)  # kernels 7 and 8: the presets' head widths
-TC_HEAD_DIM = 32  # bf16 at this Dh runs kernels 3 and 8 on the tensor cores
-# (queries a block, keys a walked tile) of kernel 3's
-# `flash_tc::packed_tc_kernel` (csrc/flash_attention.cu: three warpgroups
-# of 64 queries) and of kernel 8's dQ pass `bwd_tc::dq_kernel`
-# (csrc/flash_train.cu: two)
-PACKED_TC_TILE = (192, 128)
+TC_HEAD_DIM = 32  # bf16 at this Dh: kernels 3, 7 and 8 on the tensor cores
+# (queries a block, keys a walked tile) of kernel 8's dQ pass
+# `bwd_tc::dq_kernel` (csrc/flash_train.cu: two warpgroups of 64 queries)
+# and of the forward `fwd_tc::fwd_kernel` (kernels 7 and 3: three)
 DQ_TC_TILE = (128, 64)
+FWD_TC_TILE = (192, 128)
 
 
 class SplitPlan(NamedTuple):
@@ -179,7 +179,8 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k_bias: Optional[torch.Tensor],
                            num_heads: int) -> torch.Tensor:
     """q (B, Nq, H*Dh), k/v (B, Nk, H*Dh), k_bias (B, Nk) additive (0 or
-    NEG_INF; None = no mask) -> (B, Nq, H*Dh)."""
+    NEG_INF; None = no mask) -> (B, Nq, H*Dh). In bf16 at Dh 32 q, k and v
+    must be 16-byte aligned for TMA (else ValueError)."""
     b, nq, c = q.shape
     nk = k.shape[1]
     if k_bias is None:
@@ -203,33 +204,39 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k_bias.shape != (b, nk):
         raise ValueError("flash_attention_packed: k_bias must be (B, Nk)")
     out = torch.empty_like(q)
-    lib, stream = _build.lib(), _build.stream_ptr(q.device)
     if q.dtype == torch.bfloat16 and dh == TC_HEAD_DIM:
-        if not _tma_ready(q, k, v):
-            raise ValueError("flash_attention_packed: q, k, v must be "
-                             "16-byte aligned for TMA")
-        bq, bk = PACKED_TC_TILE
-        plan = split_plan(b * num_heads * -(-nq // bq), -(-nk // bk),
-                          sm_count(q.device))
-        opart = ml = None
-        if plan.splits > 1:
-            opart = torch.empty(plan.splits, b * num_heads, nq, dh,
-                                dtype=torch.float32, device=q.device)
-            ml = torch.empty(plan.splits, b * num_heads, nq, 2,
-                             dtype=torch.float32, device=q.device)
-        _build.check(lib.cmt_flash_attention_packed_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_bias.data_ptr(),
-            out.data_ptr(), _build.ptr(opart), _build.ptr(ml), b, nq, nk,
-            num_heads, plan.splits, plan.tiles_per_split, stream),
-            "cmt_flash_attention_packed_tc")
-    else:
-        _build.check(lib.cmt_flash_attention_packed(
-            _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), k_bias.data_ptr(), out.data_ptr(), b, nq, nk,
-            num_heads, dh, 1.0 / math.sqrt(dh), stream),
-            "cmt_flash_attention_packed")
+        _packed_fwd_tc(q, k, v, k_bias, out, num_heads)
+        return out
+    _build.check(_build.lib().cmt_flash_attention_packed(
+        _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_bias.data_ptr(), out.data_ptr(), b, nq, nk, num_heads, dh,
+        1.0 / math.sqrt(dh), _build.stream_ptr(q.device)),
+        "cmt_flash_attention_packed")
     _build.count("flash_attention_packed", (nq, nk, num_heads, dh))
     return out
+
+
+def _packed_fwd_tc(q, k, v, k_bias, out, num_heads):
+    """Kernel 3 in bf16 at Dh 32: kernel 7's tensor-core forward, dropout
+    off and no (m, l), reading the checked packed (B, N, H*Dh) tensors as
+    (B, H, N, Dh) through their strides and writing `out` in the same
+    layout. Its argument block is built here, not by `_train_args`, for the
+    host's sake: the eval frame is host-bound."""
+    if not _tma_ready(q, k, v):
+        raise ValueError("flash_attention_packed: q, k, v must be 16-byte "
+                         "aligned for TMA")
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    a = _FlashArgs()
+    a.q, a.k, a.v, a.kbias, a.out = (t.data_ptr()
+                                     for t in (q, k, v, k_bias, out))
+    a.sq = (ctypes.c_longlong * 3)(nq * c, TC_HEAD_DIM, c)
+    a.sk = a.sv = (ctypes.c_longlong * 3)(nk * c, TC_HEAD_DIM, c)
+    a.B, a.H, a.nq, a.nk, a.dh = b, num_heads, nq, nk, TC_HEAD_DIM
+    a.dtype = _build.dtype_code(torch.bfloat16)
+    a.scale, a.keep_scale = 1.0 / math.sqrt(TC_HEAD_DIM), 1.0
+    keep = _fwd_tc_plan(a, q.device)  # alive to the launch
+    _launch("flash_train_fwd", a, q.device, "flash_attention_packed")
 
 
 def wgmma_check(which: int, a: torch.Tensor, b: torch.Tensor,
@@ -265,7 +272,9 @@ class _FlashArgs(ctypes.Structure):
             "B", "H", "nq", "nk", "dh", "dtype", "seed", "thresh")]
         + [("scale", ctypes.c_double), ("keep_scale", ctypes.c_double),
            ("dq_part", ctypes.c_void_p), ("dq_splits", ctypes.c_longlong),
-           ("dq_tiles_per_split", ctypes.c_longlong)])
+           ("dq_tiles_per_split", ctypes.c_longlong),
+           ("o_part", ctypes.c_void_p), ("ml_part", ctypes.c_void_p)]
+        + [(n, ctypes.c_longlong) for n in ("splits", "tiles_per_split")])
 
 
 def _keep_factor(seed, rate, b, h, nq, nk, device):
@@ -369,15 +378,18 @@ def _train_args(q, k, v, k_bias, dropout_rate, seed):
     return a
 
 
-def _launch(name: str, a: _FlashArgs, dev) -> None:
+def _launch(name: str, a: _FlashArgs, dev, count_as: str = "") -> None:
+    """Launches `cmt_<name>` on the block, counted as `count_as` (default
+    `name`) at (Nq, Nk, H, Dh)."""
     fn = getattr(_build.lib(), "cmt_" + name)
     _build.check(fn(ctypes.addressof(a), _build.stream_ptr(dev)),
                  "cmt_" + name)
-    _build.count(name, (a.nq, a.nk, a.H, a.dh))
+    _build.count(count_as or name, (a.nq, a.nk, a.H, a.dh))
 
 
 def _tensor_cores(a: _FlashArgs) -> bool:
-    """Kernel 8 runs on the tensor cores (csrc/flash_train.cu `bwd_tc`)."""
+    """Kernels 7 and 8 run on the tensor cores (csrc/flash_train.cu `fwd_tc`,
+    `bwd_tc`)."""
     return a.dtype == _build.dtype_code(torch.bfloat16) and \
         a.dh == TC_HEAD_DIM
 
@@ -388,8 +400,9 @@ def flash_attention_kvmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            dropout_rate: float = 0.0, seed: int = 0):
     """Training flash forward, kernel 7 (counterpart of the JAX
     `flash_attention_kvmask`): q (B, H, Nq, Dh), k / v (B, H, Nk, Dh), any
-    views with unit stride along Dh; k_bias (B, Nk) additive (None = no
-    mask). Inverted dropout of the normalised P with the keep mask of
+    views with unit stride along Dh (in bf16 at Dh 32 also 16-byte aligned
+    for TMA, else ValueError); k_bias (B, Nk) additive (None = no mask).
+    Inverted dropout of the normalised P with the keep mask of
     `dropout_keep(seed, ...)` when `dropout_rate` > 0. Returns out
     (B, H, Nq, Dh) (a view of a (B, Nq, H, Dh) tensor on the card), and with
     `with_stats` also m and l (B, H, Nq) float32."""
@@ -410,9 +423,33 @@ def flash_attention_kvmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
         a.m_out, a.l_out = m.data_ptr(), l.data_ptr()
+    if _tensor_cores(a):
+        if not _tma_ready(q, k, v):
+            raise ValueError("flash attention: q, k and v must be 16-byte "
+                             "aligned for TMA")
+        keep = _fwd_tc_plan(a, q.device)  # alive to the launch
     _launch("flash_train_fwd", a, q.device)
     out = out.transpose(1, 2)
     return (out, m, l) if with_stats else out
+
+
+def _fwd_tc_plan(a: _FlashArgs, dev):
+    """Kernel 7's tensor-core launch on its argument block: the key walk
+    split by `split_plan` over `FWD_TC_TILE`s; with more than one split,
+    the float32 partials O and (m log2 e, l), which the caller keeps alive
+    until the launch is enqueued."""
+    bq, bk = FWD_TC_TILE
+    bh, nq = a.B * a.H, a.nq
+    plan = split_plan(bh * -(-nq // bq), -(-a.nk // bk), sm_count(dev))
+    a.splits, a.tiles_per_split = plan
+    if plan.splits == 1:
+        return None
+    o_part = torch.empty(plan.splits, bh, nq, TC_HEAD_DIM,
+                         dtype=torch.float32, device=dev)
+    ml_part = torch.empty(plan.splits, bh, nq, 2, dtype=torch.float32,
+                          device=dev)
+    a.o_part, a.ml_part = o_part.data_ptr(), ml_part.data_ptr()
+    return o_part, ml_part
 
 
 def _bwd_args(q, k, v, k_bias, out, m, l, dout, dropout_rate, seed):

@@ -36,11 +36,12 @@ stage's host span (the Hungarian's share of the step is the host part of
   `top_kernel_families_ms` the same summed over each kernel's
   instantiations (the name up to its template or argument list: kernel 4
   is `conv_tc::conv3x3_tc_kernel` in bf16, kernel 6
-  `osa_tc::osa_agg_tc_kernel`, kernel 3 `flash_tc::packed_tc_kernel`
-  beside its `packed_merge_kernel`), and `train_kernels_ms` that of
-  kernels 7 and 8 (`flash_train_*`; kernel 8 in bf16 is
-  `bwd_tc::dq_kernel` with its `dq_reduce_kernel`, and
-  `bwd_tc::dkv_kernel`).
+  `osa_tc::osa_agg_tc_kernel`, kernels 3 and 7 in bf16
+  `fwd_tc::fwd_kernel` beside its `merge_kernel`), and `train_kernels_ms`
+  that of the flash kernels (`flash_train_*`, `fwd_tc::` and `bwd_tc::`:
+  kernel 8 in bf16 is `bwd_tc::dq_kernel` with its `dq_reduce_kernel`,
+  and `bwd_tc::dkv_kernel`; in an eval trace the `fwd_tc::` entries are
+  kernel 3's launches).
 
 It prints the summary as JSON and writes it, with the Chrome trace, to
 `--out` (default `build/profile/` in the checkout).
@@ -176,7 +177,8 @@ def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
         top_kernels_ms={k: v / 1e3 / n_frames for k, v in top},
         top_kernel_families_ms={k: v / 1e3 / n_frames for k, v in families},
         train_kernels_ms={k: v / 1e3 / n_frames for k, v in kernel_us.items()
-                          if "flash_train" in k or "bwd_tc::" in k})
+                          if "flash_train" in k or "bwd_tc::" in k
+                          or "fwd_tc::" in k})
 
 
 def _card() -> str:

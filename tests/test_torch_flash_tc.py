@@ -1,16 +1,17 @@
-"""Kernels 3 and 8 on the tensor cores (bf16, Dh 32), around the kernels, on
-the CPU:
+"""Kernels 3, 7 and 8 on the tensor cores (bf16, Dh 32), around the kernels,
+on the CPU:
 
-- `split_plan`, which splits the key walk of both kernels across blocks,
+- `split_plan`, which splits the key walk of the kernels across blocks,
   covers every key tile exactly once, with no empty split, and fills at
   least a wave of the card at every shape the paths launch;
 - a plain-torch emulation of the kernels' arithmetic (bf16 operands, P and
   dS rounded to bf16 before their products, float32 accumulators, the
   online softmax in the log2 domain tile by tile, the split partials
-  merged or summed in split order) against the JAX `flash_attention_packed`
-  and `_flash_backward` Pallas kernels in interpret mode (dropout 0: the
-  interpret path has no PRNG), within the bf16 tolerance the card holds
-  the kernels to, 2e-2 of max |reference|.
+  merged or summed in split order) against the JAX `flash_attention_packed`,
+  `flash_attention_kvmask(with_stats=True)` and `_flash_backward` Pallas
+  kernels in interpret mode (dropout 0: the interpret path has no PRNG)
+  and, at dropout 0.1, against the port's plain kernel 7, within the bf16
+  tolerance the card holds the kernels to, 2e-2 of max |reference|.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py,
 chip_smoke.py).
@@ -53,7 +54,7 @@ def _check_plan(row_blocks, key_tiles, sms):
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("nq,nk", EVAL_SHAPES)
 def test_packed_plan_covers_every_key_once_and_fills_a_wave(nq, nk, sms):
-    bq, bk = ta.PACKED_TC_TILE
+    bq, bk = ta.FWD_TC_TILE
     plan = _check_plan(8 * -(-nq // bq), -(-nk // bk), sms)
     assert plan.splits > 1  # 40 blocks a split leave an H100 under a wave
 
@@ -64,6 +65,14 @@ def test_dq_plan_covers_every_key_once_and_fills_a_wave(nq, nk, sms):
     bq, bk = ta.DQ_TC_TILE
     plan = _check_plan(8 * -(-nq // bq), -(-nk // bk), sms)
     assert plan.splits > 1  # 104 blocks a split leave an H100 under a wave
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("nq,nk", TRAIN_SHAPES)
+def test_fwd_plan_covers_every_key_once_and_fills_a_wave(nq, nk, sms):
+    bq, bk = ta.FWD_TC_TILE
+    plan = _check_plan(8 * -(-nq // bq), -(-nk // bk), sms)
+    assert plan.splits > 1  # 72 blocks a split leave an H100 under a wave
 
 
 @pytest.mark.parametrize("row_blocks,key_tiles", [(1, 1), (2, 3), (40, 2),
@@ -94,43 +103,6 @@ def _bf16(x):
 def _heads(x, h):
     b, n, c = x.shape
     return x.view(b, n, h, c // h).transpose(1, 2)
-
-
-def emulate_packed(q, k, v, k_bias, heads, n_sms):
-    """Kernel 3's tensor-core arithmetic on bf16-valued float32 (B, N, C)
-    inputs: each split walks its key tiles with the online softmax in the
-    log2 domain (max started at NEG_INF log2 e, keys past Nk absent), P
-    rounded to bf16 for P V; the splits' (m, l, O) merged in split
-    order."""
-    b, nq, c = q.shape
-    nk = k.shape[1]
-    dh = c // heads
-    bq, bk = ta.PACKED_TC_TILE
-    qh, kh, vh = (_heads(x, heads) for x in (q, k, v))
-    key_tiles = -(-nk // bk)
-    plan = ta.split_plan(b * heads * -(-nq // bq), key_tiles, n_sms)
-    scale2 = LOG2E / math.sqrt(dh)
-    bias2 = (k_bias * LOG2E)[:, None, None, :]
-    parts = []
-    for rng in _ranges(plan, key_tiles):
-        m = torch.full((b, heads, nq), ta.NEG_INF * LOG2E)
-        l = torch.zeros(b, heads, nq)
-        o = torch.zeros(b, heads, nq, dh)
-        for t in rng:
-            sl = slice(t * bk, min(nk, (t + 1) * bk))
-            s = qh @ kh[:, :, sl].transpose(-1, -2) * scale2 + bias2[..., sl]
-            mx = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp2(m - mx)
-            p = torch.exp2(s - mx[..., None])
-            l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + _bf16(p) @ vh[:, :, sl]
-            m = mx
-        parts.append((m, l, o))
-    top = torch.stack([m for m, _, _ in parts]).amax(0)
-    num = sum(o * torch.exp2(m - top)[..., None] for m, _, o in parts)
-    den = sum(l * torch.exp2(m - top) for m, l, _ in parts)
-    out = num / den.clamp(min=1e-30)[..., None]
-    return out.transpose(1, 2).reshape(b, nq, c)
 
 
 def emulate_bwd(q, k, v, k_bias, out, m, l, do, n_sms):
@@ -167,6 +139,87 @@ def emulate_bwd(q, k, v, k_bias, out, m, l, do, n_sms):
     return dq * scale, dk * scale, dv, ds.sum(dim=(1, 2))
 
 
+_F32_LOG2E = torch.tensor(LOG2E, dtype=torch.float32)
+_F32_LN2 = torch.tensor(math.log(2.0), dtype=torch.float32)
+
+
+def natural_max(m2):
+    """Kernel 7's written m (csrc/flash_train.cu `fwd_tc::natural_max`): m2
+    ln 2, or the float within two ulps of it whose float32 product with
+    log2 e lies nearest m2 (first found on ties), so kernel 8's m log2 e
+    gives the forward's m2 back."""
+    best = m2 * _F32_LN2
+    err = (best * _F32_LOG2E - m2).abs()
+    up = dn = best
+    for _ in range(2):
+        up = torch.nextafter(up, torch.tensor(math.inf))
+        dn = torch.nextafter(dn, torch.tensor(-math.inf))
+        for cand in (up, dn):
+            e = (cand * _F32_LOG2E - m2).abs()
+            best = torch.where(e < err, cand, best)
+            err = torch.minimum(e, err)
+    return best
+
+
+def emulate_fwd(q, k, v, k_bias, n_sms, rate=0.0, seed=0):
+    """Kernel 7's tensor-core arithmetic on bf16-valued float32 (B, H, N, Dh)
+    inputs: each split walks its key tiles with the online softmax in the
+    log2 domain (s2 = s scale log2 e + bias log2 e, the max started at
+    NEG_INF log2 e, keys past Nk absent), l summing every P, the dropped P
+    zeroed (`dropout_keep`) and P rounded to bf16 for P V, the split's O
+    scaled by 1 / (1 - rate); the splits' (m2, l, O) merged in split order,
+    out rounded to bf16. Returns out, m (natural units, `natural_max`) and
+    l."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    bq, bk = ta.FWD_TC_TILE
+    key_tiles = -(-nk // bk)
+    plan = ta.split_plan(b * h * -(-nq // bq), key_tiles, n_sms)
+    scale2 = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32) * \
+        _F32_LOG2E
+    bias2 = (k_bias * _F32_LOG2E)[:, None, None, :]
+    keep = None
+    if rate > 0.0:
+        keep = ta.dropout_keep(seed, rate, b * h, nq, nk).reshape(
+            b, h, nq, nk)
+    parts = []
+    for rng in _ranges(plan, key_tiles):
+        m = torch.full((b, h, nq), ta.NEG_INF) * _F32_LOG2E
+        l = torch.zeros(b, h, nq)
+        o = torch.zeros(b, h, nq, dh)
+        for t in rng:
+            sl = slice(t * bk, min(nk, (t + 1) * bk))
+            s = q @ k[:, :, sl].transpose(-1, -2) * scale2 + bias2[..., sl]
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            if keep is not None:
+                p = torch.where(keep[..., sl], p, 0.0)
+            o = o * alpha[..., None] + _bf16(p) @ v[:, :, sl]
+            m = mx
+        parts.append((m, l, o * (1.0 / (1.0 - rate))))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = sum(o * torch.exp2(m - top)[..., None] for m, _, o in parts)
+    den = sum(l * torch.exp2(m - top) for m, l, _ in parts)
+    out = _bf16(num / den.clamp(min=1e-30)[..., None])
+    return out, natural_max(top), den
+
+
+def _train_inputs(rng, b, h, nq, nk, masked_row=True):
+    """bf16-valued (B, H, N, 32) q (logit std 4), k, v; a per-key bias of
+    0 or NEG_INF (a quarter masked) and, with `masked_row`, every key of
+    the last batch row masked."""
+    q, k, v = (_bf16(torch.from_numpy(
+        rng.normal(size=(b, h, n, 32)).astype(np.float32)) * s)
+        for n, s in ((nq, 4.0), (nk, 1.0), (nk, 1.0)))
+    kb = np.where(rng.uniform(size=(b, nk)) < 0.25, ta.NEG_INF,
+                  0.0).astype(np.float32)
+    if masked_row:
+        kb[-1] = ta.NEG_INF
+    return q, k, v, kb
+
+
 def _assert_within(got, ref, name):
     ref = np.asarray(ref, np.float32)
     err = float(np.abs(got.numpy() - ref).max())
@@ -195,7 +248,10 @@ def test_emulated_packed_matches_pallas_kernel(rng, n_sms):
         jnp.asarray(q.numpy()), jnp.asarray(np.pad(k.numpy(), pad)),
         jnp.asarray(np.pad(v.numpy(), pad)), jnp.asarray(kbp), heads,
         block_q=64, block_k=256, interpret=True)
-    got = emulate_packed(q, k, v, torch.from_numpy(kb), heads, n_sms)
+    # kernel 3 runs kernel 7's forward on (B, H, N, Dh) views, dropout 0
+    got = emulate_fwd(*(_heads(x, heads) for x in (q, k, v)),
+                      torch.from_numpy(kb), n_sms)[0]
+    got = got.transpose(1, 2).reshape(b, nq, heads * 32)
     _assert_within(got[0], np.asarray(ref)[0], "out")
     plain = ta.flash_attention_packed_reference(q, k, v, torch.from_numpy(kb),
                                                 heads)
@@ -225,3 +281,80 @@ def test_emulated_backward_matches_pallas_backward(rng, n_sms):
                       do, n_sms)
     for g, r, name in zip(got, ref, ("dq", "dk", "dv", "dk_bias")):
         _assert_within(g, r, name)
+
+
+def _pallas_fwd(q, k, v, kb, nq_pad, nk_pad):
+    """The JAX `flash_attention_kvmask(with_stats=True)` Pallas kernel in
+    interpret mode on whole blocks: queries zero-padded, keys padded with
+    NEG_INF bias; the padding cropped from (out, m, l)."""
+    nq, nk = q.shape[2], k.shape[2]
+    pq = ((0, 0), (0, 0), (0, nq_pad - nq), (0, 0))
+    pk = ((0, 0), (0, 0), (0, nk_pad - nk), (0, 0))
+    kbp = np.pad(kb, ((0, 0), (0, nk_pad - nk)), constant_values=ta.NEG_INF)
+    out, m, l = ja.flash_attention_kvmask(
+        jnp.asarray(np.pad(q.numpy(), pq)), jnp.asarray(np.pad(k.numpy(), pk)),
+        jnp.asarray(np.pad(v.numpy(), pk)), jnp.asarray(kbp), block_q=64,
+        block_k=128, interpret=True, with_stats=True)
+    return (np.asarray(out)[:, :, :nq], np.asarray(m)[:, :, :nq],
+            np.asarray(l)[:, :, :nq])
+
+
+@pytest.mark.parametrize("n_sms", [4, 132])
+def test_emulated_fwd_matches_pallas_kernel(rng, n_sms):
+    """Dropout 0, ragged edges (200 queries: a block's last warpgroup of 8
+    real rows; 700 keys: a partial last tile), 4 SMs forcing splits of a
+    few tiles: out, m and l of the first batch row against the Pallas
+    kernel; the fully masked last row (m = NEG_INF, l = Nk, out the
+    average of V) against the port's plain version, as the JAX kernel's
+    padded keys join that row's sum."""
+    b, h, nq, nk = 2, 2, 200, 700
+    q, k, v, kb = _train_inputs(rng, b, h, nq, nk)
+    ref = _pallas_fwd(q, k, v, kb, 256, 768)
+    got = emulate_fwd(q, k, v, torch.from_numpy(kb), n_sms)
+    for g, r, name in zip(got, ref, ("out", "m", "l")):
+        _assert_within(g[0], r[0], name)
+    plain = ta.flash_attention_kvmask_reference(q, k, v, torch.from_numpy(kb),
+                                                True)
+    for g, r, name in zip(got, plain, ("out", "m", "l")):
+        _assert_within(g[1], r[1].numpy(), "fully masked row " + name)
+    assert torch.equal(got[2][1], torch.full((h, nq), float(nk)))
+
+
+@pytest.mark.parametrize("n_sms", [4, 132])
+def test_emulated_fwd_with_dropout_matches_plain(rng, n_sms):
+    """Dropout 0.1 against the port's plain kernel 7 (the same keep bits,
+    `dropout_keep`): out, m and l, the fully masked row included."""
+    b, h, nq, nk = 2, 2, 130, 333
+    q, k, v, kb = _train_inputs(rng, b, h, nq, nk)
+    kbt = torch.from_numpy(kb)
+    got = emulate_fwd(q, k, v, kbt, n_sms, 0.1, 17)
+    plain = ta.flash_attention_kvmask_reference(q, k, v, kbt, True, 0.1, 17)
+    for g, r, name in zip(got, plain, ("out", "m", "l")):
+        _assert_within(g, r.numpy(), name)
+        _assert_within(g[1], r[1].numpy(), "fully masked row " + name)
+
+
+@pytest.mark.parametrize("n_sms", [4, 132])
+def test_emulated_fwd_feeds_the_emulated_backward(rng, n_sms):
+    """Kernel 7's (out, m, l), emulated, through kernel 8's emulated
+    arithmetic: dq, dk, dv and d(k_bias) against `_flash_backward` in
+    interpret mode on the JAX forward's own statistics, dropout 0, with a
+    fully masked batch row (its m must give the backward P = 1 / Nk back;
+    512 keys, whole JAX blocks, so no padded key joins that row)."""
+    b, h, nq, nk = 2, 2, 128, 512
+    q, k, v, kb = _train_inputs(rng, b, h, nq, nk)
+    do = _bf16(torch.from_numpy(rng.normal(size=(b, h, nq, 32)).astype(
+        np.float32)))
+    jq, jk, jv, jkb, jdo = (jnp.asarray(x) for x in (
+        q.numpy(), k.numpy(), v.numpy(), kb, do.numpy()))
+    out, m, l = ja.flash_attention_kvmask(jq, jk, jv, jkb, block_q=64,
+                                          block_k=128, interpret=True,
+                                          with_stats=True)
+    ref = ja._flash_backward(jq, jk, jv, jkb, out, m, l, jdo, None, 64, 128,
+                             True, 0.0)
+    fwd = emulate_fwd(q, k, v, torch.from_numpy(kb), n_sms)
+    got = emulate_bwd(q, k, v, torch.from_numpy(kb), *fwd, do, n_sms)
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv", "dk_bias")):
+        _assert_within(g, r, name)
+        if name != "dk_bias":
+            _assert_within(g[1], np.asarray(r)[1], "fully masked row " + name)

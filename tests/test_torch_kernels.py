@@ -305,8 +305,7 @@ def test_profile_summary_reads_one_trace():
 def test_profile_summary_train_stages():
     """The train trace's stages: device time charged to the innermost
     span (a forward stage inside `forward`), host span per stage, and
-    kernels 7 and 8 picked out by name (kernel 8's tensor-core passes
-    too)."""
+    kernels 7 and 8 picked out by name (their tensor-core passes too)."""
     def ev(cat, name, ts, dur, corr=None):
         return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
                     args={} if corr is None else {"correlation": corr})
@@ -321,7 +320,7 @@ def test_profile_summary_train_stages():
         ev("cuda_runtime", "cudaLaunchKernel", 600, 1, corr=3),
         ev("cuda_runtime", "cudaLaunchKernel", 650, 1, corr=4),
         ev("kernel", "conv", 60, 30, corr=1),
-        ev("kernel", "flash_train_fwd_kernel<bf16>", 160, 100, corr=2),
+        ev("kernel", "fwd_tc::fwd_kernel<true>", 160, 100, corr=2),
         ev("kernel", "flash_train_bwd_dkv_kernel<bf16>", 610, 200, corr=3),
         ev("kernel", "bwd_tc::dq_kernel<true>", 810, 100, corr=4),
     ]}
@@ -333,7 +332,7 @@ def test_profile_summary_train_stages():
         {"forward": 0.4, "decoder": 0.2, "loss + Hungarian": 0.1,
          "backward": 0.4})
     assert got["train_kernels_ms"] == pytest.approx(
-        {"flash_train_fwd_kernel<bf16>": 0.1,
+        {"fwd_tc::fwd_kernel<true>": 0.1,
          "flash_train_bwd_dkv_kernel<bf16>": 0.2,
          "bwd_tc::dq_kernel<true>": 0.1})
     assert got["idle_share"] == pytest.approx(0.57)
@@ -634,6 +633,88 @@ def test_train_backward_tc_kernel_at_full_width(rate, nk):
     assert no_kb[3] is None
     for a, r in zip(no_kb[:3], got):
         assert torch.equal(a, r)
+
+
+def _train_tc_inputs(dev, b, nq, nk, h=8):
+    """bf16 (B, H, N, 32) views of packed (B, N, H*32) projections, q
+    scaled so the softmax peaks (logit std 4), a quarter of the keys
+    masked with NEG_INF and, with two batch rows, every key of the last
+    (its rows then average V uniformly, m = NEG_INF, l = Nk)."""
+    g = torch.Generator(device=dev).manual_seed(nq + nk)
+    q, k, v = (torch.randn(b, n, h * 32, generator=g, device=dev).mul(
+        s).to(torch.bfloat16).view(b, n, h, 32).transpose(1, 2)
+        for n, s in ((nq, 4.0), (nk, 1.0), (nk, 1.0)))
+    masked = torch.rand(b, nk, generator=g, device=dev) < 0.25
+    if b > 1:
+        masked[-1] = True
+    return q, k, v, torch.where(masked, NEG_INF, 0.0)
+
+
+TRAIN_TC_CASES = [(1, 1540, 44400, 0.0), (1, 1540, 44400, 0.1),
+                  (2, 1001, 1001, 0.0), (2, 1001, 1001, 0.1),
+                  (2, 1001, 129, 0.0), (2, 1001, 129, 0.1),
+                  (2, 193, 129, 0.1), (2, 5, 3, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,rate", TRAIN_TC_CASES)
+def test_train_forward_tc_kernel_matches_plain(b, nq, nk, rate):
+    """Kernel 7's tensor-core route (bf16, Dh 32) at the train step's 1540
+    queries x 44400 keys and at ragged sizes (1001 = 5 x 192 + 41 queries,
+    193: a block's warpgroups of one real row and of none, 5; 1001, 129
+    keys and 3, under a 16-key slice), dropout 0 and 0.1, on strided views:
+    out, m and l of each batch row within 2e-2 of that row's max |plain|
+    (the fully masked last row's l exactly Nk), one launch counted a call,
+    and two calls bit-equal."""
+    dev = cuda_device()
+    q, k, v, kb = _train_tc_inputs(dev, b, nq, nk)
+    before = _build.launch_counts["flash_train_fwd"]
+    got = flash_attention_kvmask(q, k, v, kb, True, rate, 9)
+    assert _build.launch_counts["flash_train_fwd"] == before + 1
+    want = flash_attention_kvmask_reference(q, k, v, kb, True, rate, 9)
+    for row in range(b):
+        for a, r in zip(got, want):
+            _assert_rel(a[row], r[row], 2e-2)
+    if b > 1:
+        assert torch.equal(got[2][-1], want[2][-1])  # l = Nk exactly
+    again = flash_attention_kvmask(q, k, v, kb, True, rate, 9)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk", [(2, 1001, 1001), (1, 1540, 44400)])
+def test_train_forward_then_backward_tc_matches_plain(b, nq, nk):
+    """Kernel 7's (out, m, l) fed to kernel 8 at dropout 0.1: dq, dk, dv
+    and d(k_bias) within 2e-2 of max |plain| of the plain forward and
+    backward, the fully masked row included (its m must bring the
+    backward's recomputed P back to 1 / Nk)."""
+    dev = cuda_device()
+    q, k, v, kb = _train_tc_inputs(dev, b, nq, nk)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev).to(torch.bfloat16)
+    out, m, l = flash_attention_kvmask(q, k, v, kb, True, 0.1, 6)
+    got = flash_attention_bwd(q, k, v, kb, out, m, l, dout, 0.1, 6)
+    ref = flash_attention_kvmask_reference(q, k, v, kb, True, 0.1, 6)
+    want = flash_attention_bwd_reference(q, k, v, kb, *ref, dout, 0.1, 6)
+    for a, r in zip(got, want):
+        _assert_rel(a, r, 2e-2)
+    if b > 1:
+        _assert_rel(got[0][-1], want[0][-1], 2e-2)
+
+
+@pytest.mark.cuda
+def test_train_forward_tc_refuses_views_tma_cannot_take():
+    """A bf16 Dh-32 view off a 16-byte boundary raises: the route never
+    gives way to the CUDA-core kernel."""
+    dev = cuda_device()
+    q, k, v, kb = _train_tc_inputs(dev, 1, 64, 128, h=2)
+    flat = torch.zeros(k.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(1, 128, 2, 32).transpose(1, 2)
+    before = _build.launch_counts["flash_train_fwd"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_kvmask(q, shifted, v, kb, True, 0.1, 1)
+    assert _build.launch_counts["flash_train_fwd"] == before
 
 
 # kernel 4/5 shapes on the card: stage 5 of one view (under one wave, W not
@@ -1002,10 +1083,13 @@ def test_sorted_lookup_kernel_matches_plain(run, n_keys, n_q, tail):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (40960, 768)),
                                          (torch.float32, (1000, 37)),
+                                         (torch.float32, (999, 37)),
                                          (torch.uint8, (513, 7)),
                                          (torch.int64, (3, 2))])
 def test_rows_copy_kernel_matches_clone(dtype, shape):
-    """Kernel 10 against `clone()`: bit-equal, 16-, 4- and 1-byte words."""
+    """Kernel 10 against `clone()`: bit-equal, 16-, 4- and 1-byte words
+    (float32 (1000, 37): 16-byte words across its 148-byte rows; (999, 37):
+    4-byte words)."""
     dev = cuda_device()
     x = torch.randint(0, 100, shape, device=dev).to(dtype)
     before = _build.launch_counts["rows_copy"]
