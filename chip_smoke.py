@@ -9,8 +9,13 @@ Phases, each raising on failure (the script then exits non-zero):
   1. the device: its name and `nvidia-smi` name / power limit;
   2. the kernel build (nvcc, sm_90a) and its seconds;
   3. each hand-written kernel against its plain PyTorch version on the card,
-     at the main paths' shapes (neighbour maps and occupancy from the
-     benchmark cloud; kernel 4 at every shape the fusion path gives it, 20
+     at the main paths' shapes (kernels 1 and 2 at every conv of the pillar
+     encoder on each agent's cloud, the 13 of `PILLAR_CONVS` x 2, with the
+     neighbour maps and occupancy of the benchmark clouds, through the
+     wrapper the eval encoder calls, weights packed once and rows compacted
+     once per level, two bf16 calls bit-equal, each down conv's folded
+     occupancy (`cmt_pillar_occ_fold`) equal to `occ_downsample`'s;
+     kernel 4 at every shape the fusion path gives it, 20
      VoVNet stage shapes and the head, on operands packed once as the
      eval modules hold them, and its wrappers' host cost per launch;
      kernel 6 likewise at all 14 of the fusion path's OSA aggregate shapes;
@@ -47,7 +52,9 @@ Phases, each raising on failure (the script then exits non-zero):
      memories of 36400 (vehicle) and 44400 (infrastructure) tokens, and
      kernel 3's, 4's and 6's launches counted per shape, which weight
      phase 3's kernel, library (SDPA; cuDNN; cat + bf16 matmul) and bound
-     times into sums per fusion frame (kernel 3's per LiDAR frame too).
+     times into sums per fusion frame (kernel 3's per LiDAR frame too);
+     kernels 1 and 2's, on the LiDAR and fusion paths, weight phase 3's
+     kernel, plain and bound times of both clouds into sums per frame.
      Between
      the gather and the fusion paths, a float32 check at full width: the
      gather encoder against the pillar encoder on the same weights and the
@@ -174,8 +181,13 @@ SOURCES = {
 # what runs each kernel's bf16 cases on the card (its `impl` in the
 # kernels line)
 IMPLS = {
-    "pillar_conv_kb9": "CUDA cores",
-    "pillar_conv_kb1": "CUDA cores",
+    "pillar_conv_kb9": "bf16: tensor cores, wgmma, A gathered by cp.async "
+                       "through the neighbour map, B by TMA "
+                       "(pillar_tc::pillar_conv_tc_kernel); float32: CUDA "
+                       "cores",
+    "pillar_conv_kb1": "bf16: tensor cores, wgmma, A gathered by cp.async, "
+                       "B by TMA (pillar_tc::pillar_conv_tc_kernel); "
+                       "float32: CUDA cores",
     "flash_attention_packed": "bf16 Dh 32: tensor cores, wgmma + TMA "
                               "(kernel 7's fwd_tc::fwd_kernel on views, "
                               "dropout off, split-KV, merge_kernel); "
@@ -362,28 +374,146 @@ def levels_of(batch, agent, ext):
     return stats, counts, levels
 
 
-def pillar_work(feats, nbr, wts, *, kz, z_stride, z_pad, occ_out=None,
-                occ_in=None, fold_occ=False, residual=None, scale=None,
-                bias=None, relu=True):
-    """(bytes, flops) of a pillar conv on this data: the products of every
-    occupied output voxel with the taps whose input voxel is occupied."""
+# the pillar encoder's convs of one agent, as phase 3 times them: (what,
+# level, Cin, Cout, kind); kind "subm" (occupancy given), "resid" (with the
+# block's residual), "down" (stride 2 into the next level, occupancy
+# folded), "out" (conv_out, KB 1)
+PILLAR_CONVS = (("conv_input", 0, 5, 16, "subm"),
+                ("L0 conv1", 0, 16, 16, "subm"), ("L0 conv2", 0, 16, 16,
+                                                   "resid"),
+                ("L0->L1 down", 0, 16, 32, "down"),
+                ("L1 conv1", 1, 32, 32, "subm"), ("L1 conv2", 1, 32, 32,
+                                                  "resid"),
+                ("L1->L2 down", 1, 32, 64, "down"),
+                ("L2 conv1", 2, 64, 64, "subm"), ("L2 conv2", 2, 64, 64,
+                                                  "resid"),
+                ("L2->L3 down", 2, 64, 128, "down"),
+                ("L3 conv1", 3, 128, 128, "subm"), ("L3 conv2", 3, 128, 128,
+                                                    "resid"),
+                ("conv_out", 3, 128, 128, "out"))
+
+
+def pillar_kernel_phases(clouds, results, dev):
+    """Kernels 1 and 2 at every conv of the pillar encoder on each agent's
+    cloud (`PILLAR_CONVS`), through the wrapper the eval encoder calls: the
+    weights packed once (`pack_pillar_weight`), the active rows compacted
+    once per level. Random features on the occupied input voxels and
+    weights from SEED; each bf16 case also two calls bit-equal, and each
+    down conv's occupancy folded by `cmt_pillar_occ_fold` equal to
+    `occ_downsample`'s."""
     from cmtcoop_tpu_torch.ops import pillars as pu
-    if fold_occ:
-        occ_out = pu.occ_downsample(occ_in, nbr, kz, z_stride, z_pad)
-    occ_src = occ_in if occ_in is not None else feats.ne(0).any(-1)
-    p_in, z_in = occ_src.shape
-    padded = torch.cat([occ_src, occ_src.new_zeros(1, z_in)])
-    padded = torch.nn.functional.pad(padded, (z_pad, z_pad))
-    src = padded[nbr.long()]
-    z_out = occ_out.shape[1]
-    span = (z_out - 1) * z_stride + 1
-    taps = sum(int((src[:, :, dz:dz + span:z_stride]
-                    & occ_out[:, None, :]).sum()) for dz in range(kz))
-    cin, cout = wts.shape[1:]
-    out_bytes = nbr.shape[0] * z_out * cout * feats.element_size()
-    return (nbytes(feats, nbr, residual, occ_in, occ_out, scale, bias)
-            + wts.numel() * feats.element_size() + out_bytes,
-            2.0 * taps * cin * cout)
+    from cmtcoop_tpu_torch.ops.conv_cf import sm_count
+    from cmtcoop_tpu_torch.ops.pillar_fused import (
+        active_rows, fold_occupancy, fused_pillar_conv_packed,
+        fused_pillar_conv_reference, pack_pillar_weight, pillar_conv_plan)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def plain(x, nbr, packed, rows=None, **kw):
+        return fused_pillar_conv_reference(
+            x, nbr, packed.source, kz=packed.kz, scale=packed.scale,
+            bias=packed.bias, **kw)
+
+    for agent, levels in clouds.items():
+        rows = [active_rows(lv["occ"]) for lv in levels]
+        ident = pu.identity_map(levels[3]["grid"])
+        occ_final = pu.occ_downsample(levels[3]["occ"], ident, 3, 2, 0)
+        rows_final = active_rows(occ_final)
+        for what, li, cin, cout, kind in PILLAR_CONVS:
+            lv = levels[li]
+            occ_in = lv["occ"]
+            kb = 1 if kind == "out" else 9
+            kw = dict(relu=True)
+            if kind == "down":
+                nbr, occ_out, r = lv["nbr_dn"], levels[li + 1]["occ"], \
+                    rows[li + 1]
+                kw.update(z_stride=2, z_pad=lv["zpad"])
+                if not torch.equal(fold_occupancy(occ_in, nbr, 3, 2,
+                                                  lv["zpad"]), occ_out):
+                    raise AssertionError(
+                        f"cmt_pillar_occ_fold {agent}{what}: the folded "
+                        f"occupancy differs from occ_downsample's")
+            elif kind == "out":
+                nbr, occ_out, r = ident, occ_final, rows_final
+                kw.update(z_stride=2, z_pad=0)
+            else:
+                nbr, occ_out, r = lv["nbr"], occ_in, rows[li]
+            kw.update(occ_out=occ_out, rows=r)
+            x = randn(*occ_in.shape, cin) * occ_in[..., None]
+            w = randn(3 * kb, cin, cout, scale=(3 * kb * cin) ** -0.5)
+            scale, bias = 1.0 + 0.1 * randn(cout), 0.1 * randn(cout)
+            resid = (randn(*occ_out.shape, cout) * occ_out[..., None]
+                     if kind == "resid" else None)
+            packs = {dt: pack_pillar_weight(w, scale, bias, dt)
+                     for dt in (torch.bfloat16, torch.float32)}
+
+            def inputs(dtype, x=x, nbr=nbr, kw=kw, resid=resid, packs=packs):
+                a = dict(kw)
+                if resid is not None:
+                    a["residual"] = resid.to(dtype)
+                return (x.to(dtype), nbr, packs[dtype]), a
+
+            def work(x, nbr, packed, occ_in=occ_in, occ_out=occ_out,
+                     residual=None, z_stride=1, z_pad=1, **_):
+                """(bytes, flops) that this data needs: the input voxels in
+                the receptive field of an occupied output voxel and the
+                residual's occupied rows read once, the dense output
+                written once (its zeros too), the map, the occupancy, the
+                weight, scale and bias read once; the products of every
+                occupied output voxel with the taps whose input voxel is
+                occupied."""
+                p_in, z_in = occ_in.shape
+                p_out, z_out = occ_out.shape
+                zo = torch.arange(z_out, device=x.device) * z_stride
+                need = torch.zeros(p_in + 1, z_in + 2 * z_pad,
+                                   dtype=torch.bool, device=x.device)
+                padded = torch.nn.functional.pad(
+                    torch.cat([occ_in, occ_in.new_zeros(1, z_in)]),
+                    (z_pad, z_pad))
+                taps = 0
+                for j in range(nbr.shape[1]):
+                    src = nbr[:, j].long()
+                    for dz in range(packed.kz):
+                        ps, zs = occ_out.nonzero(as_tuple=True)
+                        need[src[ps], zo[zs] + dz] = True
+                        taps += int(padded[src[ps], zo[zs] + dz].sum())
+                need = need[:p_in, z_pad:z_pad + z_in]
+                elt = x.element_size()
+                n_occ = int(occ_out.sum())
+                return (int(need.sum()) * packed.cin * elt
+                        + (n_occ * packed.cout * elt if residual is not None
+                           else 0)
+                        + occ_out.numel() * packed.cout * elt
+                        + nbytes(nbr, occ_out, packed.scale, packed.bias)
+                        + packed.source.numel() * elt,
+                        2.0 * taps * packed.cin * packed.cout)
+
+            p_out, z_out = occ_out.shape
+            shape = [kb, *occ_in.shape, cin, p_out, z_out, cout,
+                     kind == "resid"]
+            name = "pillar_conv_kb9" if kb == 9 else "pillar_conv_kb1"
+            note = (f"{agent.rstrip('_')} {what} P{occ_in.shape[0]} "
+                    f"Z{occ_in.shape[1]} -> P{p_out} Z{z_out} {cin}->{cout}")
+            compare(name, note, fused_pillar_conv_packed, plain, inputs,
+                    results, work=work,
+                    info=dict(shape=shape, agent=agent.rstrip("_"),
+                              conv=what))
+            case = results[name]["cases"][-1]
+            args, a = inputs(torch.bfloat16)
+            first = fused_pillar_conv_packed(*args, **a)
+            second = fused_pillar_conv_packed(*args, **a)
+            if not torch.equal(first, second):
+                raise AssertionError(f"{name} {note}: two bf16 calls differ")
+            plan = pillar_conv_plan(kb, 3, cin, cout, p_out * z_out,
+                                    sm_count(dev))
+            case.update(bit_equal=True, plan=plan.bm)
+            if kind == "down":
+                case["occ_fold_equal"] = True
+            log(f"kernel {name} [{note}] bfloat16: two calls bit-equal"
+                + ("; folded occupancy equal" if kind == "down" else "")
+                + f" (rows a tile {plan.bm})")
 
 
 def sdpa(q, k, v, k_bias, dropout_p=0.0):
@@ -394,7 +524,7 @@ def sdpa(q, k, v, k_bias, dropout_p=0.0):
         dropout_p=dropout_p)
 
 
-def kernel_phases(lv, results, dev):
+def kernel_phases(results, dev):
     from cmtcoop_tpu_torch.models.layers import (AggPack, BatchNorm,
                                                  Conv2d, ConvBNReLU)
     from cmtcoop_tpu_torch.ops import pillars as pu
@@ -409,46 +539,11 @@ def kernel_phases(lv, results, dev):
                                                osa_aggregate_reference,
                                                pack_conv3x3_weight,
                                                pack_osa_weight, sm_count)
-    from cmtcoop_tpu_torch.ops.pillar_fused import (
-        fused_pillar_conv, fused_pillar_conv_reference)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    def pillar_case(name, note, level, cin, cout, nbr, kw, with_resid):
-        p_in, z_in = level["occ"].shape
-        feats = randn(p_in, z_in, cin) * level["occ"][..., None]
-        taps = 3 * nbr.shape[1]
-        wts = randn(taps, cin, cout, scale=(taps * cin) ** -0.5)
-        scale, bias = 1.0 + 0.1 * randn(cout), 0.1 * randn(cout)
-        resid = (randn(p_in, z_in, cout) * level["occ"][..., None]
-                 if with_resid else None)
-
-        def inputs(dtype):
-            a = dict(kw, scale=scale, bias=bias, relu=True)
-            if resid is not None:
-                a["residual"] = resid.to(dtype)
-            return (feats.to(dtype), nbr, wts), a
-
-        compare(name, note, fused_pillar_conv,
-                fused_pillar_conv_reference, inputs, results,
-                work=pillar_work)
-
-    l0, l1, l3 = lv[0], lv[1], lv[3]
-    pillar_case("pillar_conv_kb9", "stage-0 subm P38400 Z41 16->16", l0, 16,
-                16, l0["nbr"], dict(kz=3, z_stride=1, z_pad=1,
-                                    occ_out=l0["occ"]), True)
-    pillar_case("pillar_conv_kb9", "stage-1 down fold_occ P40960->24064 "
-                "Z21->11 32->64", l1, 32, 64, l1["nbr_dn"],
-                dict(kz=3, z_stride=2, z_pad=l1["zpad"], occ_in=l1["occ"],
-                     fold_occ=True), False)
-    ident = pu.identity_map(l3["grid"])
-    pillar_case("pillar_conv_kb1", "conv_out P11264 Z5->2 128->128", l3, 128,
-                128, ident, dict(kz=3, z_stride=2, z_pad=0,
-                                 occ_out=pu.occ_downsample(l3["occ"], ident,
-                                                           3, 2, 0)), False)
 
     # kernel 3 at the decoder's memories (the fusion path's two, the LiDAR
     # and gather paths' one): q scaled so the softmax peaks (logit std 4), a
@@ -878,8 +973,8 @@ def exact_kernel_phases(ext, batch, level0, results):
 
 def telemetry(model, batch):
     """bench.py's cap telemetry for both agents' clouds: raises unless
-    there are zero pillar and voxel drops at every level. Returns the
-    vehicle cloud's levels (phase 3's shapes)."""
+    there are zero pillar and voxel drops at every level. Returns each
+    cloud's levels (phase 3's shapes), by agent prefix."""
     from cmtcoop_tpu_torch.main_path import PILLAR_CAPS
     levels = {}
     for agent in ("vehicle_", "infrastructure_"):
@@ -897,7 +992,7 @@ def telemetry(model, batch):
         for n, c in zip(counts, PILLAR_CAPS[1:]):
             if n > c:
                 raise AssertionError(f"{agent} level occupancy {n} > {c}")
-    return levels["vehicle_"]
+    return levels
 
 
 def gather_telemetry(model, batch):
@@ -1045,6 +1140,43 @@ def per_run(results, shapes, name, library, unit, path=None):
         f"{sum(c[key] for c in cases)} launches at {len(cases)} shapes, "
         f"counted in the path's run): kernel {sums['ms']:.3f} ms, {library} "
         f"{sums['library_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms")
+
+
+def pillar_per_run(results, shapes, unit):
+    """Kernels 1 and 2 per frame of one path's run (`unit`): phase 3's
+    times at each conv shape weighted by the launches the run's N_FRAMES
+    frames made at it, each agent's cloud by its half (the two agents
+    launch at the same shapes, the same number of times). Raises unless
+    the run launched at exactly the shapes phase 3 timed, an even number of
+    times a frame."""
+    key = "launches_per_" + unit
+    total = dict(ms=0.0, bound_ms=0.0, launches=0)
+    for name in ("pillar_conv_kb9", "pillar_conv_kb1"):
+        cases = results[name]["cases"]
+        launched = {shape: n for (k, shape), n in shapes.items()
+                    if k == name}
+        timed = {tuple(c["shape"]) for c in cases}
+        if (set(launched) != timed
+                or any(n % (2 * N_FRAMES) for n in launched.values())):
+            raise AssertionError(f"{name}'s {unit} shapes {launched} are "
+                                 f"not the {len(timed)} shapes phase 3 "
+                                 "timed, each launched by both agents")
+        for c in cases:
+            c[key] = launched[tuple(c["shape"])] // (2 * N_FRAMES)
+        sums = {k: sum(c[k] * c[key] for c in cases)
+                for k in ("ms", "bound_ms", "plain_ms")}
+        results[name][f"per_{unit}_ms"] = sums
+        n = sum(c[key] for c in cases)
+        total["ms"] += sums["ms"]
+        total["bound_ms"] += sums["bound_ms"]
+        total["launches"] += n
+        log(f"kernel {name} per {unit.replace('_', ' ')} ({n} launches at "
+            f"{len(timed)} shapes, counted in the path's run): kernel "
+            f"{sums['ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, bound "
+            f"{sums['bound_ms']:.3f} ms")
+    log(f"kernels 1 and 2 per {unit.replace('_', ' ')}: {total['launches']} "
+        f"launches, kernel {total['ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms")
 
 
 def slice_parity(name, model, batch, kernels, dev):
@@ -1247,8 +1379,10 @@ def main():
     # 3. each kernel against its plain version
     results = {}
     with torch.inference_mode():
-        kernel_phases(levels, results, dev)
-        exact_kernel_phases(model.vehicle_model, batch, levels[0], results)
+        pillar_kernel_phases(levels, results, dev)
+        kernel_phases(results, dev)
+        exact_kernel_phases(model.vehicle_model, batch,
+                            levels["vehicle_"][0], results)
     train_kernel_phases(results, dev)
 
     # 4. the main paths, one or two models on the card at a time
@@ -1257,6 +1391,7 @@ def main():
                                                            model, batch)
     per_run(results, shapes["lidar"], "flash_attention_packed", "SDPA",
             "lidar_frame", "lidar")
+    pillar_per_run(results, shapes["lidar"], "lidar_frame")
     del levels
     path = main_path.GATHER_PATH
     gather, gather_batch = main_path.build_main_path(dev, path)
@@ -1276,6 +1411,7 @@ def main():
             "fusion_frame")
     per_run(results, fusion, "flash_attention_packed", "SDPA",
             "fusion_frame", "fusion")
+    pillar_per_run(results, fusion, "fusion_frame")
     del model, batch
     torch.cuda.empty_cache()
 

@@ -8,8 +8,9 @@ kernel on a CUDA tensor calls `lib()`, which builds if needed.
 
 Every wrapper adds one to its entry of `launch_counts` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path reached.
-A wrapper may also name the shape it launched at (the 3x3 conv, the OSA
-aggregate and the flash attention kernels, (Nq, Nk, heads, Dh), do):
+A wrapper may also name the shape it launched at (the pillar convs, the
+3x3 conv, the OSA aggregate and the flash attention kernels, (Nq, Nk,
+heads, Dh), do):
 `launch_shapes` then counts the launches per (kernel, shape).
 """
 from __future__ import annotations
@@ -40,10 +41,10 @@ launch_shapes: Counter = Counter()  # (kernel name, shape) -> launches
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-_PILLAR_ARGS = [_I] + [_P] * 9 + [_I] * 10 + [_P]
 _SIGNATURES = {
-    "cmt_pillar_conv_kb9": _PILLAR_ARGS,
-    "cmt_pillar_conv_kb1": _PILLAR_ARGS,
+    "cmt_pillar_conv_f32": [_I] + [_P] * 9 + [_I] * 10 + [_P],
+    "cmt_pillar_tc_weight_map": [_P, _I, _I, _I, _P],
+    "cmt_pillar_conv_tc": [_I] + [_P] * 9 + [_I] * 12 + [_P],
     "cmt_pillar_occ_fold": [_P] * 3 + [_I] * 8 + [_P],
     "cmt_flash_attention_packed": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
     "cmt_wgmma_selftest": [_I] + [_P] * 6,

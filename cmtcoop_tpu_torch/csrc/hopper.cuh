@@ -1,6 +1,7 @@
 // Hopper building blocks for the port's tensor-core kernels (sm_90a):
-// mbarriers, TMA tile loads, wgmma descriptors and the bf16 wgmma
-// instructions, written as inline PTX so the build needs no library.
+// mbarriers, cp.async gathers, TMA tile loads, wgmma descriptors and the
+// bf16 wgmma instructions, written as inline PTX so the build needs no
+// library.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only; nothing links to libcuda)
@@ -51,6 +52,42 @@ __device__ __forceinline__ void cmt_mbar_wait(uint32_t bar, uint32_t parity) {
 // a multiple of 32: syncs a block's consumer warps without its producer
 __device__ __forceinline__ void cmt_named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- cp.async (global -> shared, 16 bytes a thread) ----
+// One 16-byte copy that reads `src_bytes` (16 or 0) bytes of `src` and
+// zero-fills the rest, so 0 writes 16 zero bytes and reads nothing
+// (`src` must still be a valid address). Bypasses L1 (.cg).
+__device__ __forceinline__ void cmt_cp_async16(uint32_t dst, const void* src,
+                                               uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// closes the thread's copies issued since the last commit into one group
+__device__ __forceinline__ void cmt_cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of the thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cmt_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// Orders this thread's shared-memory writes made through the generic proxy
+// (st.shared, and cp.async, whose writes land there once waited for)
+// before later reads through the async proxy: wgmma reads its shared
+// operands there, so data written by cp.async must be fenced (then the
+// writers synchronised with the readers) before the wgmma that reads it.
+// Without the fence the wgmma may read stale bytes, silently.
+__device__ __forceinline__ void cmt_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// Byte offset of the 16-byte piece `q` (0-7) of row `r` in a K-major tile
+// of 128-byte rows laid out as TMA's 128-byte swizzle lays it, which
+// cmt_sw128_desc describes: piece q sits at q ^ (r % 8) within its row
+// (the tile 1024-byte aligned).
+__device__ __forceinline__ uint32_t cmt_sw128_offset(int r, int q) {
+  return (uint32_t)(r * 128 + ((q ^ (r & 7)) << 4));
 }
 
 // ---- TMA tile loads (global -> shared), completion on an mbarrier ----
@@ -155,6 +192,21 @@ __device__ __forceinline__ uint32_t cmt_pack_bf16(float lo, float hi) {
 // + e of row half hh.
 template <int N>
 struct Wgmma;
+
+// N = 16 (the pillar encoder's first level: Cout 16)
+template <>
+struct Wgmma<16> {
+  __device__ static __forceinline__ void mma(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
 
 // N = 32 (one attention head wide), with B K-major (TB = 0) or MN-major
 // (TB = 1, its descriptor from cmt_sw64_mn_desc)

@@ -12,6 +12,13 @@
 //            64-byte rows (the flash kernels' score product), then
 //            d (64 x 32) = bf16(x) c, c (64 x 32): the register-A form,
 //            x's accumulators repacked to bf16 A fragments, c MN-major.
+//   which 3: the pillar convs' A path (csrc/pillar_conv.cu): d (64 x 16) =
+//            g (64 x 64) b^T, b (16 x 64) by TMA with the 128-byte
+//            swizzle, g's row r = a[idx[r]] (a: 64 rows of 64 bf16, idx
+//            int32 in c), gathered by cp.async in 16-byte pieces into the
+//            same swizzle, a zero row where idx[r] < 0 (src-size 0); then
+//            the proxy fence, the block barrier and Wgmma<16>, four
+//            16-deep slices (+32 B each) of cmt_sw128_desc.
 #include <string.h>
 
 #include "hopper.cuh"
@@ -109,6 +116,59 @@ __global__ void __launch_bounds__(128)
       d[(r0 + 8 * (e >> 1)) * 32 + 8 * j + c0 + (e & 1)] = acc[4 * j + e];
 }
 
+// which 3: one warpgroup, its A gathered by cp.async
+__global__ void __launch_bounds__(128)
+    gather_selftest_kernel(const __grid_constant__ CUtensorMap map_b,
+                           const __nv_bfloat16* __restrict__ a,
+                           const int* __restrict__ idx,
+                           float* __restrict__ d) {
+  __shared__ uint8_t raw_s[1024 + 8192 + 2048 + 8];
+  const uint32_t ta = (cmt_smem_addr(raw_s) + 1023u) & ~1023u;
+  const uint32_t tb = ta + 8192, bar = tb + 2048;
+  if (threadIdx.x == 0) {
+    cmt_mbar_init(bar, 1);
+    cmt_mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    cmt_mbar_expect_tx(bar, 2048);
+    cmt_tma_load_2d(tb, &map_b, bar, 0, 0);
+  }
+  // two threads a row, pieces h, h + 2, h + 4, h + 6
+  const int r = threadIdx.x / 2, h = threadIdx.x % 2;
+  const int src = idx[r];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = h + 2 * i;
+    cmt_cp_async16(ta + cmt_sw128_offset(r, q),
+                   a + (src >= 0 ? src : 0) * 64 + 8 * q, src >= 0 ? 16 : 0);
+  }
+  cmt_cp_async_commit();
+  cmt_cp_async_wait<0>();
+  cmt_fence_proxy_async();
+  __syncthreads();
+  cmt_mbar_wait(bar, 0);
+
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  const uint64_t da = cmt_sw128_desc(ta), db = cmt_sw128_desc(tb);
+  cmt_fence_regs(acc);
+  cmt_wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) Wgmma<16>::mma(acc, da + 2 * kk, db + 2 * kk);
+  cmt_wgmma_commit();
+  cmt_wgmma_wait<0>();
+  cmt_fence_regs(acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[(r0 + 8 * (e >> 1)) * 16 + 8 * j + c0 + (e & 1)] = acc[4 * j + e];
+}
+
 bool row_map(CUtensorMap* map, const void* ptr, int rows) {
   const cuuint64_t dims[2] = {32, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {64};
@@ -121,11 +181,25 @@ bool row_map(CUtensorMap* map, const void* ptr, int rows) {
 }  // namespace
 
 // a, b, c bf16 row-major (c only for which 2), d float32 (64, 32), x float32
-// (64, 64) for which 2; one block of one warpgroup on `stream`
+// (64, 64) for which 2; which 3: a (64, 64) and b (16, 64) bf16, c the
+// int32 row map (64,), d float32 (64, 16). One block of one warpgroup on
+// `stream`.
 extern "C" int cmt_wgmma_selftest(int which, const void* a, const void* b,
                                   const void* c, void* d, void* x,
                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (which == 3) {
+    CUtensorMap map_b;
+    const cuuint64_t dims[2] = {64, 16};
+    const cuuint64_t strides[1] = {128};
+    const cuuint32_t box[2] = {64, 16};
+    if ((size_t)a % 16 || (size_t)b % 16 ||
+        !cmt_bf16_map(&map_b, b, 2, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+    gather_selftest_kernel<<<1, 128, 0, st>>>(
+        map_b, (const __nv_bfloat16*)a, (const int*)c, (float*)d);
+    return (int)cudaGetLastError();
+  }
   const int b_rows = which == 2 ? 64 : 32;
   Maps maps;
   memset(&maps, 0, sizeof(maps));

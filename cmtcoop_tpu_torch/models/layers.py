@@ -17,6 +17,8 @@ from cmtcoop_tpu_torch.ops.conv_cf import (PackedAgg, PackedConv3x3,
                                            conv3x3_bn_relu_packed, fold_bn,
                                            pack_conv3x3_weight,
                                            pack_osa_weight)
+from cmtcoop_tpu_torch.ops.pillar_fused import (PackedPillarConv,
+                                                pack_pillar_weight)
 
 
 class BatchNorm(nn.Module):
@@ -134,6 +136,31 @@ class AggPack:
         if key != self.key:
             self.packed = pack_osa_weight(weight[:, :, 0, 0].t(), *bn.fold(),
                                           chans, dtype)
+            self.key = key
+        return self.packed
+
+
+class PillarConvPack:
+    """The packed operands of a pillar conv + BatchNorm
+    (`pack_pillar_weight` of the spconv weight in the fused conv's layout,
+    with the folded BN), held by its module for eval and rebuilt as
+    `ConvPack`'s. It saves the permute, cast, copy and BN fold that each of
+    a fusion frame's 42 pillar conv launches would otherwise repeat, and
+    keeps the weight's TMA map."""
+
+    def __init__(self):
+        self.key, self.packed = None, None
+
+    def __call__(self, weight: torch.Tensor, bn: BatchNorm,
+                 dtype) -> PackedPillarConv:
+        """weight (O, kz, ky, kx, I), spconv's layout."""
+        key = _pack_key(dtype, weight, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var)
+        if key != self.key:
+            kernel = weight.permute(1, 2, 3, 4, 0).reshape(
+                -1, weight.shape[-1], weight.shape[0])
+            self.packed = pack_pillar_weight(kernel, *bn.fold(), dtype,
+                                             kz=weight.shape[1])
             self.key = key
         return self.packed
 

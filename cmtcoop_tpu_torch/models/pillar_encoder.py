@@ -3,8 +3,12 @@ in cmtcoop_tpu/models/pillar_encoder.py).
 
 The same function as mmdet3d's SparseEncoder (submanifold basic blocks,
 strided down convs, `conv_out`), on sparse BEV pillars carrying dense z
-tiles. Eval: every convolution is one `fused_pillar_conv` (conv + folded BN
-+ residual + ReLU + occupancy, kernels 1 and 2). Train, as the JAX train
+tiles. Eval: every convolution is one `fused_pillar_conv_packed` (conv +
+folded BN + residual + ReLU + occupancy, kernels 1 and 2) on operands its
+module packs once (`PillarConvPack`) and on the active rows of its output
+occupancy, compacted once per occupancy: level 0's serve `conv_input` and
+that level's basic blocks, each down conv's folded occupancy the next
+level's, and `conv_out` its own. Train, as the JAX train
 path: the gather `pillar_conv` under autograd, each conv checkpointed (its
 gathered (P, KB, Z, C) tiles are recomputed in the backward; keeping them
 ran the JAX step out of memory), then BN with the statistics of the
@@ -23,9 +27,10 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from cmtcoop_tpu_torch.models.layers import BatchNorm
+from cmtcoop_tpu_torch.models.layers import BatchNorm, PillarConvPack
 from cmtcoop_tpu_torch.ops import pillars as pu
-from cmtcoop_tpu_torch.ops.pillar_fused import fused_pillar_conv
+from cmtcoop_tpu_torch.ops.pillar_fused import (active_rows, fold_occupancy,
+                                                fused_pillar_conv_packed)
 
 BN_EPS, BN_MOMENTUM = 1e-3, 0.99  # MaskedBatchNorm (flax momentum)
 DOWN_ZPADS = (1, 1, 0)
@@ -37,11 +42,24 @@ class SparseConvWeight(nn.Module):
     def __init__(self, cin: int, cout: int, k: Tuple[int, int, int]):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, *k, cin))
+        self.pack = PillarConvPack()
 
     def kernel(self) -> torch.Tensor:
         """(K = kz*ky*kx, I, O), z-major: the fused conv's layout."""
         w = self.weight
         return w.permute(1, 2, 3, 4, 0).reshape(-1, w.shape[-1], w.shape[0])
+
+    def packed(self, bn: BatchNorm, dtype):
+        """The eval operands with `bn` folded in, packed for `dtype` once."""
+        return self.pack(self.weight, bn, dtype)
+
+
+def eval_conv(mod: nn.Sequential, x, nbr, occ_out, rows, z_stride: int = 1,
+              z_pad: int = 1):
+    """conv + folded BN + ReLU on the active `rows` of occ_out (eval)."""
+    return fused_pillar_conv_packed(
+        x, nbr, mod[0].packed(mod[1], x.dtype), z_stride=z_stride,
+        z_pad=z_pad, occ_out=occ_out, relu=True, rows=rows)
 
 
 def _bn(c: int) -> BatchNorm:
@@ -78,19 +96,23 @@ class SparseBasicBlock(nn.Module):
         self.conv2 = SparseConvWeight(c, c, (3, 3, 3))
         self.norm2 = _bn(c)
 
-    def forward(self, x, nbr, occ):
+    def forward(self, x, nbr, occ, rows=None):
+        """`rows`: the `active_rows` of occ (eval; compacted here if
+        None)."""
         if self.training:
             m = occ[..., None]
             y = torch.relu(self.norm1.masked(train_conv(x, nbr, self.conv1),
                                              occ)) * m
             y = self.norm2.masked(train_conv(y, nbr, self.conv2), occ)
             return torch.relu(y + x) * m
-        s1, b1 = self.norm1.fold()
-        y = fused_pillar_conv(x, nbr, self.conv1.kernel(), scale=s1, bias=b1,
-                              occ_out=occ, relu=True)
-        s2, b2 = self.norm2.fold()
-        return fused_pillar_conv(y, nbr, self.conv2.kernel(), scale=s2,
-                                 bias=b2, occ_out=occ, residual=x, relu=True)
+        if rows is None:
+            rows = active_rows(occ)
+        y = fused_pillar_conv_packed(
+            x, nbr, self.conv1.packed(self.norm1, x.dtype), occ_out=occ,
+            relu=True, rows=rows)
+        return fused_pillar_conv_packed(
+            y, nbr, self.conv2.packed(self.norm2, x.dtype), occ_out=occ,
+            residual=x, relu=True, rows=rows)
 
 
 class EncoderWeights(nn.Module):
@@ -153,15 +175,14 @@ class PillarSparseEncoder(EncoderWeights):
         x = feats.to(dtype)
         nbr = pu.pillar_neighbor_map(grid)
         train = self.training
+        rows = None if train else active_rows(occ)
         if train:
             x = train_block(self.conv_input, x, nbr, occ)
         else:
-            s, b = self.conv_input[1].fold()
-            x = fused_pillar_conv(x, nbr, self.conv_input[0].kernel(),
-                                  scale=s, bias=b, occ_out=occ, relu=True)
+            x = eval_conv(self.conv_input, x, nbr, occ, rows)
         for i, (mods, down) in enumerate(self.stages()):
             for blk in mods:
-                x = blk(x, nbr, occ)
+                x = blk(x, nbr, occ, rows)
             if down is None:
                 continue
             cap = self.pillar_caps[min(i + 1, len(self.pillar_caps) - 1)]
@@ -172,10 +193,10 @@ class PillarSparseEncoder(EncoderWeights):
                 occ = pu.occ_downsample(occ, nbr_dn, 3, 2, zp)
                 x = train_block(down, x, nbr_dn, occ, z_stride=2, z_pad=zp)
             else:
-                s, b = down[1].fold()
-                x, occ = fused_pillar_conv(
-                    x, nbr_dn, down[0].kernel(), z_stride=2, z_pad=zp,
-                    scale=s, bias=b, relu=True, occ_in=occ, fold_occ=True)
+                occ = fold_occupancy(occ, nbr_dn, 3, 2, zp)
+                rows = active_rows(occ)
+                x = eval_conv(down, x, nbr_dn, occ, rows, z_stride=2,
+                              z_pad=zp)
             grid = out_grid
             nbr = pu.pillar_neighbor_map(grid)
 
@@ -187,10 +208,8 @@ class PillarSparseEncoder(EncoderWeights):
             x = train_block(self.conv_out, x, ident, occ_out, z_stride=2,
                             z_pad=0)
         else:
-            s, b = self.conv_out[1].fold()
-            x = fused_pillar_conv(x, ident, self.conv_out[0].kernel(), kz=3,
-                                  z_stride=2, z_pad=0, scale=s, bias=b,
-                                  occ_out=occ_out, relu=True)
+            x = eval_conv(self.conv_out, x, ident, occ_out,
+                          active_rows(occ_out), z_stride=2, z_pad=0)
         dense = pu.pillars_to_dense(
             pu.PillarGrid(grid.coords, grid.mask, grid.hw, x.shape[1]), x)
         hh, ww, zc = dense.shape

@@ -10,6 +10,7 @@ Tests marked `cuda` skip without a GPU. On the card float32 is compared
 with TF32 off at max |kernel - plain| <= 1e-4 * max |plain| (summation
 order only); bfloat16 at 2e-2 (output rounding, a few ulps).
 """
+
 import numpy as np
 import pytest
 import torch
@@ -43,9 +44,15 @@ from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                            pack_osa_weight, sm_count)
 from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, sorted_lookup,
                                                  sorted_lookup_reference)
-from cmtcoop_tpu_torch.ops.pillar_fused import (fused_pillar_conv,
+from cmtcoop_tpu_torch.ops.pillar_fused import (active_rows,
+                                                fold_occupancy,
+                                                fused_pillar_conv,
+                                                fused_pillar_conv_packed,
                                                 fused_pillar_conv_reference,
-                                                pin_rows, pin_rows_reference)
+                                                gather_wgmma_check,
+                                                pack_pillar_weight, pin_rows,
+                                                pillar_conv_plan,
+                                                pin_rows_reference)
 
 # the small cooperative detector of the slice tests (16x16 BEV, 2 stages)
 SLICE_PRESET = tiny_preset(**SMALL_COOP_PRESET)
@@ -506,6 +513,141 @@ def test_pillar_kernels_match_plain(dtype, tol, case):
     after = _build.launch_counts["pillar_conv_kb9" if nbr.shape[1] == 9
                                  else "pillar_conv_kb1"]
     assert after == before + 1
+
+
+# the pillar encoder's convs at reduced P: (kind, Cin, Cout); kinds
+# "input" (no residual), "subm" (with a residual), "down" (stride 2, z pad
+# 1), "down0" (the last down conv's z pad 0), "out" (conv_out, KB 1)
+PILLAR_TC_CASES = [("input", 5, 16), ("subm", 16, 16), ("down", 16, 32),
+                   ("subm", 32, 32), ("down", 32, 64), ("subm", 64, 64),
+                   ("down0", 64, 128), ("subm", 128, 128),
+                   ("input", 128, 128), ("out", 128, 128)]
+
+
+def _pillar_tc_case(dev, kind, cin, cout, seed=0, n=600, z=11):
+    """(feats, nbr, packed, kwargs) of one conv on a random 48 x 48 BEV
+    grid of `n` pillars (40% of them occupied at each z), bf16."""
+    g = torch.Generator().manual_seed(seed)
+    cells = torch.randperm(48 * 48, generator=g)[:n].sort().values
+    p = n + 16  # padding rows past the pillars
+    coords = torch.full((p, 2), -1, dtype=torch.int32)
+    coords[:n, 0], coords[:n, 1] = (cells // 48).int(), (cells % 48).int()
+    mask = torch.arange(p) < n
+    grid = pu.PillarGrid(coords.to(dev), mask.to(dev), (48, 48), z)
+    occ = ((torch.rand(p, z, generator=g) < 0.4) & mask[:, None]).to(dev)
+    x = (torch.randn(p, z, cin, generator=g).to(dev)
+         * occ[..., None]).to(torch.bfloat16)
+    kb = 1 if kind == "out" else 9
+    w = (torch.randn(3 * kb, cin, cout, generator=g)
+         * (3 * kb * cin) ** -0.5).to(dev)
+    s = (1 + 0.1 * torch.randn(cout, generator=g)).to(dev)
+    b = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    kw = dict(relu=True)
+    if kind in ("input", "subm"):
+        nbr = pu.pillar_neighbor_map(grid)
+        kw["occ_out"] = occ
+        if kind == "subm":
+            kw["residual"] = (torch.randn(p, z, cout, generator=g).to(dev)
+                              * occ[..., None]).to(torch.bfloat16)
+    elif kind == "out":
+        nbr = pu.identity_map(grid)
+        kw.update(z_stride=2, z_pad=0,
+                  occ_out=pu.occ_downsample(occ, nbr, 3, 2, 0))
+    else:
+        nbr = pu.pillar_conv_neighbor_map(
+            grid, pu.pillar_downsample_grid(grid, 400))
+        kw.update(z_stride=2, z_pad=0 if kind == "down0" else 1,
+                  occ_in=occ, fold_occ=True)
+    return x, nbr, pack_pillar_weight(w, s, b, torch.bfloat16), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cin,cout", PILLAR_TC_CASES)
+def test_pillar_tc_kernel_matches_plain(kind, cin, cout):
+    """Kernels 1 and 2's bf16 route (wgmma, A gathered by cp.async) at
+    each Cin -> Cout of the pillar encoder and at KB 1, against the plain
+    version; two calls bit-equal."""
+    dev = cuda_device()
+    x, nbr, packed, kw = _pillar_tc_case(dev, kind, cin, cout)
+    ref = fused_pillar_conv_reference(x, nbr, packed.source, kz=3,
+                                      scale=packed.scale, bias=packed.bias,
+                                      **kw)
+    name = "pillar_conv_kb1" if kind == "out" else "pillar_conv_kb9"
+    before = _build.launch_counts[name]
+    got = fused_pillar_conv_packed(x, nbr, packed, **kw)
+    _assert_close(got, ref, 2e-2)
+    again = fused_pillar_conv_packed(x, nbr, packed, **kw)
+    for a, b in zip(got if kw.get("fold_occ") else (got,),
+                    again if kw.get("fold_occ") else (again,)):
+        assert torch.equal(a, b)
+    assert _build.launch_counts[name] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 16), (128, 128)])
+def test_pillar_tc_kernel_walks_many_tiles_a_block(cin, cout):
+    """More occupied rows than the persistent grid has blocks times rows a
+    tile (128 at Cout 16, 64 at Cout 128), so each block walks several
+    tiles and its ring runs on across them: against the plain version, two
+    calls bit-equal."""
+    dev = cuda_device()
+    x, nbr, packed, kw = _pillar_tc_case(dev, "subm", cin, cout, n=2304,
+                                         z=64)
+    plan = pillar_conv_plan(9, 3, cin, cout, x.shape[0] * x.shape[1],
+                            sm_count(dev))
+    n_rows = int(kw["occ_out"].sum())
+    assert -(-n_rows // plan.bm) > plan.grid
+    got = fused_pillar_conv_packed(x, nbr, packed, **kw)
+    ref = fused_pillar_conv_reference(x, nbr, packed.source, kz=3,
+                                      scale=packed.scale, bias=packed.bias,
+                                      **kw)
+    _assert_close(got, ref, 2e-2)
+    assert torch.equal(fused_pillar_conv_packed(x, nbr, packed, **kw), got)
+
+
+@pytest.mark.cuda
+def test_pillar_tc_kernel_on_shared_rows_and_empty_occupancy():
+    """The encoder's call: a down conv's occupancy folded and compacted
+    once, then passed in; an occupancy with no row leaves the output
+    zero."""
+    dev = cuda_device()
+    x, nbr, packed, kw = _pillar_tc_case(dev, "down", 32, 64)
+    occ = fold_occupancy(kw["occ_in"], nbr, 3, 2, 1)
+    ref, ref_occ = fused_pillar_conv_packed(x, nbr, packed, **kw)
+    assert torch.equal(occ, ref_occ)
+    rows = active_rows(occ)
+    got = fused_pillar_conv_packed(x, nbr, packed, z_stride=2, z_pad=1,
+                                   occ_out=occ, relu=True, rows=rows)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="active_rows"):
+        fused_pillar_conv_packed(x, nbr, packed, z_stride=2, z_pad=1,
+                                 occ_out=occ.clone(), relu=True, rows=rows)
+    empty = torch.zeros_like(occ)
+    out = fused_pillar_conv_packed(x, nbr, packed, z_stride=2, z_pad=1,
+                                   occ_out=empty, relu=True)
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.cuda
+def test_cp_async_gather_wgmma_n16_matches_matmul():
+    """The bf16 pillar kernel's A path alone (csrc/wgmma_selftest.cu, which
+    3): rows of a gathered by cp.async through a row map, a zero-filled
+    row (src-size 0) where the map is -1, into the 128-byte swizzle, fenced
+    to the async proxy, then wgmma m64n16k16 against a TMA-loaded B, four
+    16-deep slices; against torch.matmul in float32 (bf16 inputs: exact up
+    to the summation order)."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(16, 64, generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.randperm(64, generator=g, device=dev).int()
+    idx[::5] = -1
+    got = gather_wgmma_check(a, b, idx)
+    gathered = torch.where(idx[:, None] >= 0, a[idx.clamp(min=0).long()],
+                           torch.zeros_like(a))
+    torch.cuda.synchronize()
+    _assert_rel(got, gathered.float() @ b.float().t(), 1e-5)
 
 
 @pytest.mark.cuda
