@@ -32,12 +32,17 @@ Phases, each raising on failure (the script then exits non-zero):
      (bytes over 3.35 TB/s, bf16 operations over 989 TFLOP/s, or for the
      flash kernels one exponential a score over 3.9 T/s, H100 SXM) and one
      PyTorch library call that computes the same function, where there is
-     one; the sorted lookup
-     (kernel 9) at the vehicle cloud's gather stage-0 submanifold map (its
-     voxel ids as keys, 27 tap columns as queries) and its level-0 pillar
-     map (9 taps), and the row copy (kernel 10) at (40960, 768) in bfloat16
-     and float32, both bit-equal to their plain versions, kernel 10 also
-     timed in turns with clone() over 21 repeats (medians and IQRs);
+     one; the fused neighbour map (kernel 9) at every map of the pillar
+     encoder on both clouds (7 + 7) and of the gather encoder on the
+     vehicle cloud (8, the stage-0 submanifold map the largest), each map's
+     inputs captured from the encoder, with its tiles' bracket widths
+     (p50, p99, max) and `torch.searchsorted` on the plain version's
+     prepared targets as the library call (the compare-count alone), and
+     each encoder's map builders run once under
+     `torch.cuda.set_sync_debug_mode("error")`; and the row copy (kernel
+     10) at (40960, 768) in bfloat16 and float32; both bit-equal to their
+     plain versions, kernel 10 also timed in turns with clone() over 21
+     repeats (medians and IQRs);
   4. the eval main paths, each through `build_detector` at full width in
      bfloat16 with seeded random weights, on the benchmark batch (two
      65536-point ray-cast clouds, seed 0): `cmt_lidar_coop_tumtraf`, the
@@ -54,7 +59,10 @@ Phases, each raising on failure (the script then exits non-zero):
      phase 3's kernel, library (SDPA; cuDNN; cat + bf16 matmul) and bound
      times into sums per fusion frame (kernel 3's per LiDAR frame too);
      kernels 1 and 2's, on the LiDAR and fusion paths, weight phase 3's
-     kernel, plain and bound times of both clouds into sums per frame.
+     kernel, plain and bound times of both clouds into sums per frame;
+     kernel 9's, exactly one launch a map (14 a LiDAR or fusion frame, 16
+     a gather frame, 14 a train step), weight its times into sums per
+     LiDAR, gather and fusion frame and per train step.
      Between
      the gather and the fusion paths, a float32 check at full width: the
      gather encoder against the pillar encoder on the same weights and the
@@ -91,6 +99,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -171,8 +180,8 @@ SOURCES = {
                            "cmtcoop_tpu/ops/attention.py:309"),
     "flash_train_bwd_dkv": ("cmtcoop_tpu_torch/csrc/flash_train.cu",
                             "cmtcoop_tpu/ops/attention.py:354"),
-    "sorted_lookup": ("cmtcoop_tpu_torch/csrc/sorted_lookup.cu",
-                      "cmtcoop_tpu/ops/lookup_kernel.py:32"),
+    "neighbor_map": ("cmtcoop_tpu_torch/csrc/sorted_lookup.cu",
+                     "cmtcoop_tpu/ops/lookup_kernel.py:32"),
     "rows_copy": ("cmtcoop_tpu_torch/csrc/rows_copy.cu",
                   "cmtcoop_tpu/ops/pillar_fused.py:59"),
 }
@@ -205,7 +214,10 @@ IMPLS = {
                           "cores",
     "flash_train_bwd_dkv": "bf16 Dh 32: tensor cores, wgmma + TMA "
                            "(bwd_tc::dkv_kernel); float32: CUDA cores",
-    "sorted_lookup": "CUDA cores",
+    "neighbor_map": "CUDA cores: one launch a map, queries formed in "
+                    "registers, each tile's tap run bracketed by a warp's "
+                    "32-ary ballot search, the tile's rows staged in shared "
+                    "memory (nmap::neighbor_map_kernel)",
     "rows_copy": "CUDA cores (16-byte vector copies)",
 }
 
@@ -250,7 +262,7 @@ def host_us(fn, iters=20, repeats=7):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
+               if isinstance(t, torch.Tensor))
 
 
 def bound(n_bytes, flops, exps=0.0):
@@ -876,11 +888,13 @@ def median_iqr(xs):
     return xs[n // 2], xs[(3 * n) // 4] - xs[n // 4]
 
 
-def compare_exact(name, note, kernel, plain, args, results, library):
+def compare_exact(name, note, kernel, plain, args, results, library,
+                  info=None):
     """A kernel whose outputs must be bit-equal to its plain version's on
     `args`; records the case's kernel, plain and library times (`library()`
-    gives the timed call) and its bound (bytes: its inputs read once, its
-    outputs written once)."""
+    gives the timed call; each over 20 calls, as these kernels take
+    microseconds), `info` and its bound (bytes: its tensor inputs read
+    once, its outputs written once)."""
     got = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -890,12 +904,12 @@ def compare_exact(name, note, kernel, plain, args, results, library):
         if g.dtype != r.dtype or not torch.equal(g, r):
             raise AssertionError(f"{name} {note}: output {i} differs from "
                                  "the plain version")
-    k_ms = cuda_ms(lambda: kernel(*args))
-    p_ms = cuda_ms(lambda: plain(*args))
+    k_ms = cuda_ms(lambda: kernel(*args), iters=20)
+    p_ms = cuda_ms(lambda: plain(*args), iters=20)
     log(f"kernel {name} [{note}]: bit-equal to the plain version, kernel "
         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
     case = dict(note=note, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                library_ms=cuda_ms(library()))
+                library_ms=cuda_ms(library(), iters=20), **(info or {}))
     case["bound_ms"], case["bound_by"] = bound(nbytes(*args) + nbytes(*got),
                                                0.0)
     record(results, name, case)
@@ -903,53 +917,136 @@ def compare_exact(name, note, kernel, plain, args, results, library):
         f"({case['bound_by']}), library {case['library_ms']:.4f} ms")
 
 
-def captured_lookup(module, fn, *args):
-    """(keys, queries) of the first `sorted_lookup` that `fn(*args)` makes
-    through `module`: the kernel's inputs exactly as the path gives them."""
+def captured_maps(module, fn, *args, **kwargs):
+    """The arguments of every `neighbor_map` that `fn(*args, **kwargs)`
+    makes through `module`: the kernel's inputs exactly as the path gives
+    them."""
     seen = []
-    orig = module.sorted_lookup
+    orig = module.neighbor_map
 
-    def recording(keys, queries, run=1):
-        seen.append((keys, queries))
-        return orig(keys, queries, run)
+    def recording(*a):
+        seen.append(a)
+        return orig(*a)
 
-    module.sorted_lookup = recording
+    module.neighbor_map = recording
     try:
-        fn(*args)
+        fn(*args, **kwargs)
     finally:
-        module.sorted_lookup = orig
-    return seen[0]
+        module.neighbor_map = orig
+    return seen
 
 
-def exact_kernel_phases(ext, batch, level0, results):
-    """Kernel 9 at the vehicle cloud's gather stage-0 submanifold map and
-    its level-0 pillar map, kernel 10 at the packed rows of the JAX
-    fallback branch, (40960, 768), in bfloat16 and float32."""
+def pillar_maps(enc, pcoords, pmask):
+    """The pillar encoder's 7 neighbour maps and 3 downsample grids of one
+    cloud, built as its forward builds them."""
+    from cmtcoop_tpu_torch.main_path import PILLAR_CAPS
+    from cmtcoop_tpu_torch.ops import pillars as pu
+    d, h, w = enc.sparse_shape
+    grid = pu.PillarGrid(pcoords, pmask, (h, w), d)
+    keys = grid.linear_ids
+    maps = [pu.pillar_neighbor_map(grid, keys=keys)]
+    for cap in PILLAR_CAPS[1:]:
+        out = pu.pillar_downsample_grid(grid, cap)
+        maps.append(pu.pillar_conv_neighbor_map(grid, out, keys=keys))
+        grid, keys = out, out.linear_ids
+        maps.append(pu.pillar_neighbor_map(grid, keys=keys))
+    return maps
+
+
+def no_sync(what, fn, *args):
+    """fn(*args) under `torch.cuda.set_sync_debug_mode("error")`: raises
+    if it synchronises with the host."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"{what}: no host synchronisation")
+    return out
+
+
+def neighbor_map_phases(model, batch, results):
+    """Kernel 9 at every neighbour map of the pillar encoder on both clouds
+    (7 each) and of the gather encoder on the vehicle cloud (8), each map's
+    inputs captured from the encoder as its path calls it: bit-equal to the
+    plain version, kernel / plain / library times, the bound and the
+    bracket widths of its tiles' runs (`neighbor_map_walk`). The library call is
+    the plain version's one `torch.searchsorted` on its prepared int64
+    targets: the compare-count alone, without the query formation or the
+    select. Each encoder's map builders also run once under
+    `set_sync_debug_mode("error")`."""
+    from cmtcoop_tpu_torch.main_path import SPARSE_CAPS
+    from cmtcoop_tpu_torch.models.sparse_encoder import SparseEncoder
     from cmtcoop_tpu_torch.ops import lookup_kernel as lk
     from cmtcoop_tpu_torch.ops import pillars as pu
     from cmtcoop_tpu_torch.ops import sparse_utils as su
-    from cmtcoop_tpu_torch.ops.pillar_fused import (pin_rows,
-                                                    pin_rows_reference)
+    calls = []
+    for agent in ("vehicle_", "infrastructure_"):
+        ext = getattr(model, agent + "model")
+        enc = ext.pts_middle_encoder
+        pillars = ext.pillarize(batch[agent + "points"][0],
+                                batch[agent + "points_mask"][0])
+        seen = captured_maps(pu, enc, *pillars, dtype=torch.bfloat16)
+        # a subm map a level and a down map between levels
+        want = 2 * len(enc.encoder_channels) - 1
+        if len(seen) != want:
+            raise AssertionError(f"{agent} pillar encoder built {len(seen)} "
+                                 f"neighbour maps, not {want}")
+        calls += [("pillar", agent, a) for a in seen]
+        if agent == "vehicle_":
+            no_sync("pillar encoder map builders (vehicle cloud)",
+                    pillar_maps, enc, *pillars[:2])
+    ext = model.vehicle_model
     vox = ext.voxelize(batch["vehicle_points"][0],
                        batch["vehicle_points_mask"][0])
-    grid = su.SparseGrid(vox.coords, vox.mask,
-                         ext.pts_middle_encoder.sparse_shape)
-    for note, keys, q in (
-            ("gather stage-0 subm map, {0} keys, 27 x {0} queries",
-             *captured_lookup(su, su.subm_neighbor_map, grid)),
-            ("level-0 pillar map, {0} keys, 9 x {0} queries",
-             *captured_lookup(pu, pu.pillar_neighbor_map, level0["grid"]))):
-        # the library call: the plain version's one torch.searchsorted, on
-        # its int64 keys and (n, 2) targets q + d
-        keys64, q64 = keys.long(), q.long()[:, None]
+    genc = SparseEncoder(sparse_shape=ext.pts_middle_encoder.sparse_shape,
+                         stage_caps=SPARSE_CAPS)
+    seen = captured_maps(su, genc.maps, vox.coords, vox.mask)
+    # a subm map a stage, a down map after each but the last, conv_out's
+    if len(seen) != 2 * len(genc.encoder_channels):
+        raise AssertionError(f"gather encoder built {len(seen)} neighbour "
+                             "maps, not two a stage")
+    calls += [("gather", "vehicle_", a) for a in seen]
+    no_sync("gather encoder map builders (vehicle cloud, SparseEncoder."
+            "maps)", genc.maps, vox.coords, vox.mask)
+    for enc_name, agent, args in calls:
+        keys, coords, mask, shape, ks, st, pad = args
+        _, widths = lk.neighbor_map_walk(*args)
+        w = widths.float()
+        brackets = (dict(p50=float(w.quantile(0.5)),
+                         p99=float(w.quantile(0.99)), max=float(w.max()),
+                         tile_runs=int(w.numel()))
+                    if w.numel() else dict(p50=0.0, p99=0.0, max=0.0,
+                                           tile_runs=0))
+        q = lk.neighbor_queries(coords, mask, shape, ks, st, pad)
+        q64 = q.reshape(-1, 1).long()
         targets = torch.where(q64 == lk.INT32_MAX, q64,
                               q64 + torch.arange(2, device=q.device))
-        compare_exact("sorted_lookup", note.format(keys.shape[0]),
-                      lk.sorted_lookup, lk.sorted_lookup_reference, (keys, q),
-                      results,
-                      lambda: lambda: torch.searchsorted(keys64, targets))
-    gen = torch.Generator(device=keys.device).manual_seed(SEED + 2)
-    x = torch.randn(40960, 768, generator=gen, device=keys.device)
+        keys64 = keys.long()
+        _, ks, st, _ = lk.geometry(shape, ks, st, pad)
+        note = (f"{enc_name} {agent[:-1]} {ks} stride {st}: "
+                f"{keys.shape[0]} keys, {coords.shape[0]} sites x "
+                f"{q.shape[1]} taps")
+        shape_key = (keys.shape[0], coords.shape[0]) + ks + st
+        compare_exact("neighbor_map", note, lk.neighbor_map,
+                      lk.neighbor_map_reference, args, results,
+                      lambda: lambda: torch.searchsorted(keys64, targets),
+                      info=dict(path=enc_name, agent=agent[:-1],
+                                shape=shape_key, brackets=brackets))
+        log(f"kernel neighbor_map [{note}]: bracket widths p50 "
+            f"{brackets['p50']:.0f}, p99 {brackets['p99']:.0f}, max "
+            f"{brackets['max']:.0f} keys over {brackets['tile_runs']} runs "
+            "of a 128-site tile")
+
+
+def rows_copy_phases(dev, results):
+    """Kernel 10 at the packed rows of the JAX fallback branch, (40960,
+    768), in bfloat16 and float32."""
+    from cmtcoop_tpu_torch.ops.pillar_fused import (pin_rows,
+                                                    pin_rows_reference)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.randn(40960, 768, generator=gen, device=dev)
     for dt in (torch.bfloat16, torch.float32):
         xd = x.to(dt)
         note = f"(40960, 768) {str(dt).split('.')[-1]}"
@@ -1112,6 +1209,10 @@ def run_path(preset, model, batch):
         if (launches[name] > 0) != (name in path_kernels):
             raise AssertionError(f"{preset}: kernel {name} launched "
                                  f"{launches[name]} times")
+    if launches["neighbor_map"] != main_path.MAP_LAUNCHES[preset] * N_FRAMES:
+        raise AssertionError(f"{preset}: {launches['neighbor_map']} "
+                             f"neighbour-map launches in {N_FRAMES} frames, "
+                             "not one a map")
     return launches, shapes
 
 
@@ -1140,6 +1241,41 @@ def per_run(results, shapes, name, library, unit, path=None):
         f"{sum(c[key] for c in cases)} launches at {len(cases)} shapes, "
         f"counted in the path's run): kernel {sums['ms']:.3f} ms, {library} "
         f"{sums['library_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms")
+
+
+def map_per_run(results, shapes, unit, preset):
+    """Kernel 9 per frame or step of one path's run (`unit`): phase 3's
+    times of its encoder's maps weighted by the launches the run's N_FRAMES
+    frames or steps made at each map's shape, the cases at one shape (the
+    two clouds' on the pillar encoder) sharing them. Raises unless the run
+    made `main_path.MAP_LAUNCHES` launches a frame, at exactly the shapes
+    phase 3 timed."""
+    from cmtcoop_tpu_torch.main_path import GATHER_PATH, MAP_LAUNCHES
+    encoder = "gather" if preset == GATHER_PATH else "pillar"
+    cases = [c for c in results["neighbor_map"]["cases"]
+             if c["path"] == encoder]
+    launched = {shape: n for (k, shape), n in shapes.items()
+                if k == "neighbor_map"}
+    per_shape = Counter(tuple(c["shape"]) for c in cases)
+    if (set(launched) != set(per_shape)
+            or sum(launched.values()) != MAP_LAUNCHES[preset] * N_FRAMES):
+        raise AssertionError(f"neighbor_map's {unit} launches {launched} "
+                             f"are not {MAP_LAUNCHES[preset]} a frame at the "
+                             f"{len(per_shape)} shapes phase 3 timed")
+    key = "launches_per_" + unit
+    sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    for c in cases:
+        shape = tuple(c["shape"])
+        c[key] = launched[shape] / N_FRAMES / per_shape[shape]
+        for k in sums:
+            sums[k] += c[k] * c[key]
+    sums["launches"] = MAP_LAUNCHES[preset]
+    results["neighbor_map"][f"per_{unit}_ms"] = sums
+    log(f"kernel neighbor_map per {unit.replace('_', ' ')} "
+        f"({sums['launches']} launches at {len(per_shape)} shapes, counted "
+        f"in the path's run): kernel {sums['ms']:.4f} ms, plain "
+        f"{sums['plain_ms']:.4f} ms, torch.searchsorted "
+        f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
 
 
 def pillar_per_run(results, shapes, unit):
@@ -1265,6 +1401,11 @@ def run_train(dev):
         if (launches[name] > 0) != (name in path_kernels):
             raise AssertionError(f"train: kernel {name} launched "
                                  f"{launches[name]} times")
+    if launches["neighbor_map"] != (main_path.MAP_LAUNCHES[
+            main_path.TRAIN_PATH] * N_FRAMES):
+        raise AssertionError(f"train: {launches['neighbor_map']} "
+                             f"neighbour-map launches in {N_FRAMES} steps, "
+                             "not one a map")
     solve_ms = [t * 1e3 for t in solve_s[1:]]
     log(f"train path {main_path.TRAIN_PATH}: {N_FRAMES} steps, ms/step "
         f"{' '.join(f'{t:.1f}' for t in times)} (mean "
@@ -1381,8 +1522,8 @@ def main():
     with torch.inference_mode():
         pillar_kernel_phases(levels, results, dev)
         kernel_phases(results, dev)
-        exact_kernel_phases(model.vehicle_model, batch,
-                            levels["vehicle_"][0], results)
+        neighbor_map_phases(model, batch, results)
+        rows_copy_phases(dev, results)
     train_kernel_phases(results, dev)
 
     # 4. the main paths, one or two models on the card at a time
@@ -1392,12 +1533,14 @@ def main():
     per_run(results, shapes["lidar"], "flash_attention_packed", "SDPA",
             "lidar_frame", "lidar")
     pillar_per_run(results, shapes["lidar"], "lidar_frame")
+    map_per_run(results, shapes["lidar"], "lidar_frame", main_path.PRESET)
     del levels
     path = main_path.GATHER_PATH
     gather, gather_batch = main_path.build_main_path(dev, path)
     with torch.inference_mode():
         gather_telemetry(gather, gather_batch)
-    launches[path] = run_path(path, gather, gather_batch)[0]
+    launches[path], shapes["gather"] = run_path(path, gather, gather_batch)
+    map_per_run(results, shapes["gather"], "gather_frame", path)
     gather_vs_pillar(gather, model, batch)
     del model, batch, gather, gather_batch
     torch.cuda.empty_cache()
@@ -1412,6 +1555,7 @@ def main():
     per_run(results, fusion, "flash_attention_packed", "SDPA",
             "fusion_frame", "fusion")
     pillar_per_run(results, fusion, "fusion_frame")
+    map_per_run(results, fusion, "fusion_frame", preset)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -1422,6 +1566,7 @@ def main():
     for name in ("flash_train_bwd_dq", "flash_train_bwd_dkv"):
         per_run(results, train, name, "SDPA backward (dq, dk, dv)",
                 "train_step", "train")
+    map_per_run(results, train, "train_step", main_path.TRAIN_PATH)
     torch.cuda.empty_cache()
 
     # 6. slice parity (small configs): GPU kernels vs CPU plain, float32

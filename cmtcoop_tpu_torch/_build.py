@@ -9,8 +9,8 @@ kernel on a CUDA tensor calls `lib()`, which builds if needed.
 Every wrapper adds one to its entry of `launch_counts` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path reached.
 A wrapper may also name the shape it launched at (the pillar convs, the
-3x3 conv, the OSA aggregate and the flash attention kernels, (Nq, Nk,
-heads, Dh), do):
+3x3 conv, the OSA aggregate, the flash attention kernels, (Nq, Nk,
+heads, Dh), and the neighbour map, (n_in, V_out, kernel, stride), do):
 `launch_shapes` then counts the launches per (kernel, shape).
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
            "conv3x3_bn_relu", "conv3x3_bn_relu_resid", "osa_aggregate",
            "flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv",
-           "sorted_lookup", "rows_copy")
+           "neighbor_map", "rows_copy")
 launch_counts = dict.fromkeys(KERNELS, 0)
 launch_shapes: Counter = Counter()  # (kernel name, shape) -> launches
 
@@ -60,7 +60,8 @@ _SIGNATURES = {
     "cmt_flash_train_fwd": [_P, _P],
     "cmt_flash_train_bwd_dq": [_P, _P],
     "cmt_flash_train_bwd_dkv": [_P, _P],
-    "cmt_sorted_lookup": [_P, _I, _P, _I, _I, _P, _P, _P],
+    # the geometry is a pointer to 12 ints
+    "cmt_neighbor_map": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
     "cmt_rows_copy": [_P, _P, _L, _L, _P],
 }
 

@@ -35,15 +35,20 @@ TRAIN_PATH = FUSION_PRESET + " train"
 # after the eSE scale, and the port's pillar kernels take no fallback branch
 # to pin a layout on; the train path runs kernels 7 and 8 and no other eval
 # kernel, as the JAX train path; every LiDAR path's neighbour maps run
-# kernel 9, and the gather path no pillar kernel)
+# kernel 9, one launch a map, and the gather path no pillar kernel)
 _LIDAR = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
-          "conv3x3_bn_relu", "sorted_lookup")
+          "conv3x3_bn_relu", "neighbor_map")
 PATH_KERNELS = {PRESET: _LIDAR,
                 FUSION_PRESET: _LIDAR + ("osa_aggregate",),
                 GATHER_PATH: ("flash_attention_packed", "conv3x3_bn_relu",
-                              "sorted_lookup"),
+                              "neighbor_map"),
                 TRAIN_PATH: ("flash_train_fwd", "flash_train_bwd_dq",
-                             "flash_train_bwd_dkv", "sorted_lookup")}
+                             "flash_train_bwd_dkv", "neighbor_map")}
+# the neighbour maps a frame or step of each path builds, one kernel-9
+# launch each: per agent 7 on the pillar encoder (a subm map a level and 3
+# down maps) and 8 on the gather one (4 subm maps, 3 down maps, conv_out's)
+MAP_LAUNCHES = {PRESET: 14, FUSION_PRESET: 14, GATHER_PATH: 16,
+                TRAIN_PATH: 14}
 SEED = 0
 MAX_VOXELS = 65536
 # per-level pillar caps, calibrated on the benchmark clouds

@@ -173,7 +173,9 @@ class PillarSparseEncoder(EncoderWeights):
         d, h, w = self.sparse_shape
         grid = pu.PillarGrid(pcoords, pmask, (h, w), d)
         x = feats.to(dtype)
-        nbr = pu.pillar_neighbor_map(grid)
+        # each grid's sorted ids serve its subm map and the down map from it
+        keys = grid.linear_ids
+        nbr = pu.pillar_neighbor_map(grid, keys=keys)
         train = self.training
         rows = None if train else active_rows(occ)
         if train:
@@ -187,7 +189,7 @@ class PillarSparseEncoder(EncoderWeights):
                 continue
             cap = self.pillar_caps[min(i + 1, len(self.pillar_caps) - 1)]
             out_grid = pu.pillar_downsample_grid(grid, cap)
-            nbr_dn = pu.pillar_conv_neighbor_map(grid, out_grid)
+            nbr_dn = pu.pillar_conv_neighbor_map(grid, out_grid, keys=keys)
             zp = DOWN_ZPADS[i]
             if train:
                 occ = pu.occ_downsample(occ, nbr_dn, 3, 2, zp)
@@ -198,7 +200,8 @@ class PillarSparseEncoder(EncoderWeights):
                 x = eval_conv(down, x, nbr_dn, occ, rows, z_stride=2,
                               z_pad=zp)
             grid = out_grid
-            nbr = pu.pillar_neighbor_map(grid)
+            keys = grid.linear_ids
+            nbr = pu.pillar_neighbor_map(grid, keys=keys)
 
         # conv_out: kernel (3, 1, 1), stride (2, 1, 1), pad 0 over the BEV
         # identity map

@@ -7,7 +7,7 @@ of cmtcoop_tpu/models/sparse_encoder.py, `encoder_impl="gather"`).
     conv_out:   SpConv(k(3,1,1), s(2,1,1), p0) + BN + ReLU, then .dense()
 
 over a sorted voxel set (ops/sparse_utils.py): every neighbour map is one
-sorted lookup (kernel 9 on the card), every conv one `gather_conv`. The
+`neighbor_map` (kernel 9 on the card), every conv one `gather_conv`. The
 module tree and state keys are the pillar encoder's (`EncoderWeights`), so
 one state_dict loads into either; the two compute the same function. BN is
 folded in eval and multiplies by the voxel mask, as the JAX package's
@@ -78,14 +78,15 @@ class SparseEncoder(EncoderWeights):
         subm, masks, down, n_sites = [], [], [], []
         n_stages = len(self.encoder_channels)
         for i in range(n_stages):
-            subm.append(su.subm_neighbor_map(grid))
+            keys = grid.linear_ids  # the stage's subm map and its down map
+            subm.append(su.subm_neighbor_map(grid, keys=keys))
             masks.append(grid.mask)
             k, s, p, cap = ((3, 3, 3), (2, 2, 2), DOWN_PADS[i],
                             self.stage_caps[i]) if i < n_stages - 1 else (
                                 *CONV_OUT, self.stage_caps[-1])
             out, n = su.downsample_output_grid(grid, k, s, p, cap,
                                                return_n=True)
-            down.append(su.conv_neighbor_map(grid, out, k, s, p))
+            down.append(su.conv_neighbor_map(grid, out, k, s, p, keys=keys))
             n_sites.append(n)
             grid = out
         masks.append(grid.mask)

@@ -4,22 +4,23 @@ cmtcoop_tpu/ops/pillars.py).
 A pillar grid is (coords (P, 2) int32 (y, x) sorted by y*W+x, mask (P,)),
 with padding rows (coords -1, mask false) at the end; features are
 (P, Z, C) and occupancy (P, Z) bool. Every neighbour map is one
-`sorted_lookup` (ops/lookup_kernel.py; kernel 9 on the card) of its query
-cells in the sorted linear ids, which is exact, so the JAX package's
-windowed lookups, overflow guards and fallbacks have no counterpart here.
-The integer maps equal the JAX package's exactly, padding rows included: a
-miss points at row P_in, the zero row the convolutions append.
+`neighbor_map` (ops/lookup_kernel.py; kernel 9 on the card, one launch a
+map) of the output sites in the input grid's sorted linear ids, which is
+exact, so the JAX package's windowed lookups, overflow guards and
+fallbacks have no counterpart here. The integer maps equal the JAX
+package's exactly, padding rows included: a miss points at row P_in, the
+zero row the convolutions append.
 
 Everything here is device-agnostic tensor code with static shapes and no
 host synchronisation.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from cmtcoop_tpu_torch.ops.lookup_kernel import INT32_MAX, sorted_lookup
+from cmtcoop_tpu_torch.ops.lookup_kernel import INT32_MAX, neighbor_map
 
 
 class PillarGrid(NamedTuple):
@@ -35,29 +36,14 @@ class PillarGrid(NamedTuple):
         return torch.where(self.mask, lin, INT32_MAX).to(torch.int32)
 
 
-def _cell_map(lin: torch.Tensor, hw, cy: torch.Tensor, cx: torch.Tensor,
-              valid: torch.Tensor, p_in: int) -> torch.Tensor:
-    """Rows of sorted `lin` holding cells (cy, cx); out of bounds, invalid
-    or absent -> p_in (int32)."""
-    h, w = hw
-    ok = valid & (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
-    q = torch.where(ok, cy * w + cx, INT32_MAX).to(torch.int32)
-    pos, hit = sorted_lookup(lin, q.reshape(-1))
-    return torch.where(hit, pos, p_in).to(torch.int32).view(q.shape)
-
-
-def pillar_neighbor_map(grid: PillarGrid, ky: int = 3,
-                        kx: int = 3) -> torch.Tensor:
+def pillar_neighbor_map(grid: PillarGrid, ky: int = 3, kx: int = 3,
+                        keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, ky*kx) int32 gather map of BEV neighbour pillars, taps row-major
-    over (dy, dx) centred on the pillar; misses -> P."""
-    dev = grid.coords.device
-    oy, ox = torch.meshgrid(torch.arange(ky, device=dev) - ky // 2,
-                            torch.arange(kx, device=dev) - kx // 2,
-                            indexing="ij")
-    cy = grid.coords[:, 0:1] + oy.reshape(1, -1)
-    cx = grid.coords[:, 1:2] + ox.reshape(1, -1)
-    return _cell_map(grid.linear_ids, grid.hw, cy, cx, grid.mask[:, None],
-                     grid.coords.shape[0])
+    over (dy, dx) centred on the pillar; misses -> P. `keys`: the grid's
+    `linear_ids`, where the caller holds them."""
+    return neighbor_map(grid.linear_ids if keys is None else keys,
+                        grid.coords, grid.mask, grid.hw, (ky, kx), 1,
+                        (ky // 2, kx // 2))
 
 
 def pillar_downsample_grid(grid: PillarGrid, max_out: int, stride: int = 2,
@@ -101,17 +87,15 @@ def pillar_downsample_grid(grid: PillarGrid, max_out: int, stride: int = 2,
 
 
 def pillar_conv_neighbor_map(in_grid: PillarGrid, out_grid: PillarGrid,
-                             stride: int = 2, k: int = 3,
-                             pad: int = 1) -> torch.Tensor:
+                             stride: int = 2, k: int = 3, pad: int = 1,
+                             keys: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """(P_out, k*k) int32 gather map into the input pillars of a strided BEV
-    conv, taps row-major over (dy, dx); misses -> P_in."""
-    dev = out_grid.coords.device
-    oy, ox = torch.meshgrid(torch.arange(k, device=dev),
-                            torch.arange(k, device=dev), indexing="ij")
-    cy = out_grid.coords[:, 0:1] * stride + oy.reshape(1, -1) - pad
-    cx = out_grid.coords[:, 1:2] * stride + ox.reshape(1, -1) - pad
-    return _cell_map(in_grid.linear_ids, in_grid.hw, cy, cx,
-                     out_grid.mask[:, None], in_grid.coords.shape[0])
+    conv, taps row-major over (dy, dx); misses -> P_in. `keys`: the input
+    grid's `linear_ids`, where the caller holds them."""
+    return neighbor_map(in_grid.linear_ids if keys is None else keys,
+                        out_grid.coords, out_grid.mask, in_grid.hw, k, stride,
+                        pad)
 
 
 def identity_map(grid: PillarGrid) -> torch.Tensor:

@@ -5,19 +5,23 @@ cmtcoop_tpu/ops/sparse_utils.py).
 A sparse tensor is (coords (V, 3) int32 (z, y, x), mask (V,)) with the
 active voxels first in ascending linear (z, y, x) order and padding rows
 (coords -1, mask false) after them; features are (V, C). Every neighbour
-map is one `sorted_lookup` of its query cells in the sorted linear ids
-(kernel 9 on the card), which is exact at any density, so the JAX
-package's windows, overflow guards and exact fallbacks have no counterpart
-here. Misses map to row V, the zero row `gather_conv` appends. The integer
-maps equal the JAX package's exactly.
+map is one `neighbor_map` of the output sites in the input grid's sorted
+linear ids (kernel 9 on the card, one launch a map), which is exact at any
+density, so the JAX package's windows, overflow guards and exact fallbacks
+have no counterpart here. Misses map to row V, the zero row `gather_conv`
+appends. The integer maps equal the JAX package's exactly. The map code
+passes kernel sizes, strides, pads and bounds as Python ints, so building
+a map makes no host-to-device copy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from cmtcoop_tpu_torch.ops.lookup_kernel import INT32_MAX, sorted_lookup
+# sorted_lookup: the lookup of arbitrary queries, here as in the JAX module
+from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, neighbor_map,
+                                                 sorted_lookup)  # noqa: F401
 
 
 class SparseGrid(NamedTuple):
@@ -35,43 +39,15 @@ class SparseGrid(NamedTuple):
         return torch.where(self.mask, lin, INT32_MAX).to(torch.int32)
 
 
-def lookup(grid: SparseGrid, query_coords: torch.Tensor,
-           query_valid: torch.Tensor) -> torch.Tensor:
-    """(N, K) int32 row of each query cell (N, K, 3) (z, y, x) in `grid`,
-    V where the query is invalid or the cell is not active. The N*K
-    queries go to one `sorted_lookup`; invalid ones as sentinels."""
-    _, h, w = grid.shape
-    v = grid.coords.shape[0]
-    c = query_coords.long()
-    lin = (c[..., 0] * h + c[..., 1]) * w + c[..., 2]
-    q = torch.where(query_valid, lin, INT32_MAX).to(torch.int32)
-    pos, hit = sorted_lookup(grid.linear_ids, q.reshape(-1))
-    return torch.where(hit, pos, v).to(torch.int32).view(q.shape)
-
-
-def kernel_offsets(kernel_size: Sequence[int], device=None) -> torch.Tensor:
-    """(K, 3) int64 offsets (dz, dy, dx) of a (kz, ky, kx) kernel, z-major:
-    the layout of the conv weights (K, Cin, Cout)."""
-    zz, yy, xx = torch.meshgrid(*(torch.arange(k, device=device)
-                                  for k in kernel_size), indexing="ij")
-    return torch.stack([zz.reshape(-1), yy.reshape(-1), xx.reshape(-1)], -1)
-
-
-def _in_bounds(c: torch.Tensor, shape) -> torch.Tensor:
-    hi = torch.tensor(shape, device=c.device)
-    return ((c >= 0) & (c < hi)).all(-1)
-
-
 def subm_neighbor_map(grid: SparseGrid,
-                      kernel_size: Sequence[int] = (3, 3, 3)) -> torch.Tensor:
+                      kernel_size: Sequence[int] = (3, 3, 3),
+                      keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(V, K) gather map of a submanifold conv on `grid` (output sites =
-    input sites), kernel centred; misses and padding rows -> V."""
-    dev = grid.coords.device
-    ks = torch.tensor(kernel_size, device=dev)
-    offs = kernel_offsets(kernel_size, dev) - (ks - 1) // 2
-    nbr = grid.coords.long()[:, None, :] + offs[None]
-    valid = _in_bounds(nbr, grid.shape) & grid.mask[:, None]
-    return lookup(grid, nbr, valid)
+    input sites), kernel centred; misses and padding rows -> V. `keys`:
+    the grid's `linear_ids`, where the caller holds them."""
+    return neighbor_map(grid.linear_ids if keys is None else keys,
+                        grid.coords, grid.mask, grid.shape, kernel_size, 1,
+                        tuple((k - 1) // 2 for k in kernel_size))
 
 
 def _out_shape(shape, kernel_size, stride, padding):
@@ -123,16 +99,14 @@ def downsample_output_grid(grid: SparseGrid, kernel_size: Sequence[int],
 
 def conv_neighbor_map(in_grid: SparseGrid, out_grid: SparseGrid,
                       kernel_size: Sequence[int], stride: Sequence[int],
-                      padding: Sequence[int]) -> torch.Tensor:
+                      padding: Sequence[int],
+                      keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(V_out, K) gather map into `in_grid` rows of a strided conv: the
-    input of output o at tap k is o*s + k - pad; misses -> V_in."""
-    dev = out_grid.coords.device
-    s = torch.tensor(stride, device=dev)
-    pad = torch.tensor(padding, device=dev)
-    src = (out_grid.coords.long()[:, None, :] * s
-           + kernel_offsets(kernel_size, dev)[None] - pad)
-    valid = _in_bounds(src, in_grid.shape) & out_grid.mask[:, None]
-    return lookup(in_grid, src, valid)
+    input of output o at tap k is o*s + k - pad; misses -> V_in. `keys`:
+    the input grid's `linear_ids`, where the caller holds them."""
+    return neighbor_map(in_grid.linear_ids if keys is None else keys,
+                        out_grid.coords, out_grid.mask, in_grid.shape,
+                        kernel_size, stride, padding)
 
 
 def gather_conv(features: torch.Tensor, nbr_idx: torch.Tensor,

@@ -5,6 +5,7 @@
     python -m cmtcoop_tpu_torch.profile_path --preset cmt_lidar_coop_tumtraf \
         --encoder gather [--out DIR]
     python -m cmtcoop_tpu_torch.profile_path --train [--out DIR]
+    python -m cmtcoop_tpu_torch.profile_path --root build/parent [...]
 
 Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
 flagship `cmt_fusion_coop_tumtraf` by default), runs one frame to warm up,
@@ -12,7 +13,12 @@ then traces 3 frames. `--encoder gather` takes the LiDAR preset with the
 gather sparse encoder (main_path.py `GATHER_PATH`), whose stages add
 `voxelize` (voxelize + VFE), `sparse maps` (every neighbour map and active
 set of the encoder, kernel 9) and `sparse convs` (its gather convs and the
-densify); its `pillar encoder` span keeps what these leave. With `--train`
+densify); its `pillar encoder` span keeps what these leave. On the pillar
+encoder, `pillar maps` holds its calls of `pillar_neighbor_map` and
+`pillar_conv_neighbor_map` (kernel 9; the downsample grids stay in `pillar
+encoder`). `--root` traces the package of another checkout (e.g. the
+parent commit unpacked with `git archive` into `build/`) with this
+module's spans and counts, so two trees are read alike. With `--train`
 it builds the full-width train step
 (main_path.py `build_train_path`), runs one step to warm up and traces one
 step: the frame is then the step, and the stages add `forward` (what no
@@ -31,7 +37,9 @@ stage's host span (the Hungarian's share of the step is the host part of
 - `stage_device_ms`: the device time of each stage, each device op charged
   to the stage whose host span launched it (`rv pe`: the image tokens' and
   the queries' RV position encodings; `other`: the BEV query embedding, the
-  fusion and the decode);
+  fusion and the decode); `stage_launches` the number of those device ops
+  (kernels, copies, memsets) and `stage_syncs` the host's CUDA
+  synchronize calls inside each stage's span;
 - `top_kernels_ms`: the device time of the busiest kernels by name,
   `top_kernel_families_ms` the same summed over each kernel's
   instantiations (the name up to its template or argument list: kernel 4
@@ -50,8 +58,10 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import importlib
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -74,7 +84,11 @@ AGENT_STAGES = {"image backbone": ("img_backbone", "forward"),
 HEAD_STAGES = {"head memory": ("build_memory",),
                "rv pe": ("_rv_pe", "_rv_query_embed"),
                "decoder": ("run_decoder",), "task heads": ("run_task_heads",)}
-STAGES = tuple(AGENT_STAGES) + tuple(HEAD_STAGES)
+# the pillar encoder's neighbour-map builders (ops/pillars.py), each call
+# in a span of this name
+PILLAR_MAPS = "pillar maps"
+PILLAR_MAP_FNS = ("pillar_neighbor_map", "pillar_conv_neighbor_map")
+STAGES = tuple(AGENT_STAGES) + (PILLAR_MAPS,) + tuple(HEAD_STAGES)
 # the gather encoder's own spans (models/sparse_encoder.py), per agent
 GATHER_STAGES = {"voxelize": ("", "voxel_features"),
                  "sparse maps": ("pts_middle_encoder", "maps"),
@@ -91,15 +105,36 @@ def _spanned(name, fn):
     return wrapped
 
 
+def _map_spanned(fn, ops):
+    """`fn` with the pillar map builders of `ops` (the `ops.pillars` module
+    the encoder calls) in `PILLAR_MAPS` spans while it runs."""
+    def wrapped(*args, **kwargs):
+        saved = {n: getattr(ops, n) for n in PILLAR_MAP_FNS}
+        for n, f in saved.items():
+            setattr(ops, n, _spanned(PILLAR_MAPS, f))
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for n, f in saved.items():
+                setattr(ops, n, f)
+    return wrapped
+
+
 def instrument(model) -> None:
-    """Wrap each stage's entry of a coop detector in a named host span. Only
-    instance attributes change; what the model computes does not."""
+    """Wrap each stage's entry of a coop detector in a named host span, and
+    the pillar encoder's map builders in `PILLAR_MAPS` spans during its
+    forward. Only instance attributes change for good; what the model
+    computes does not."""
     for agent in model.agents:
         ext = getattr(model, f"{agent}_model")
         for name, (sub, method) in {**AGENT_STAGES, **GATHER_STAGES}.items():
             obj = getattr(ext, sub, None) if sub else ext
             if obj is not None and hasattr(obj, method):
                 setattr(obj, method, _spanned(name, getattr(obj, method)))
+        enc = getattr(ext, "pts_middle_encoder", None)
+        ops = getattr(sys.modules[type(enc).__module__], "pu", None)
+        if ops is not None and all(hasattr(ops, n) for n in PILLAR_MAP_FNS):
+            enc.forward = _map_spanned(enc.forward, ops)
     head = model.pts_bbox_head
     for name, methods in HEAD_STAGES.items():
         for method in methods:
@@ -143,19 +178,32 @@ def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
                 if e.get("cat") in LAUNCH_CATS
                 and "correlation" in e.get("args", {})}
     starts = [f[0] for f in frames]
+
+    def owner(t):
+        """The innermost stage whose host span holds time t."""
+        owners = [s for s in stages if t is not None and s[0] <= t < s[1]]
+        return min(owners, key=lambda s: s[1] - s[0])[2] if owners \
+            else "other"
+
+    def in_frames(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i if i >= 0 and t < frames[i][1] else None
+
     busy, stage_us, kernel_us = [], defaultdict(float), defaultdict(float)
+    stage_ops, stage_syncs = defaultdict(int), defaultdict(int)
     for e in events:
+        if (e.get("cat") in LAUNCH_CATS and "Synchronize" in e["name"]
+                and in_frames(e["ts"]) is not None):
+            stage_syncs[owner(e["ts"])] += 1
         if e.get("cat") not in DEVICE_CATS:
             continue
-        i = bisect.bisect_right(starts, e["ts"]) - 1
-        if i < 0 or e["ts"] >= frames[i][1]:
+        i = in_frames(e["ts"])
+        if i is None:
             continue  # outside the traced frames
         busy.append((e["ts"], min(e["ts"] + e["dur"], frames[i][1])))
-        t = launched.get(e.get("args", {}).get("correlation"))
-        owners = [s for s in stages if t is not None and s[0] <= t < s[1]]
-        owner = min(owners, key=lambda s: s[1] - s[0])[2] if owners \
-            else "other"
-        stage_us[owner] += e["dur"]
+        stage = owner(launched.get(e.get("args", {}).get("correlation")))
+        stage_us[stage] += e["dur"]
+        stage_ops[stage] += 1
         kernel_us[e["name"]] += e["dur"]
     if not busy:
         raise ValueError("the trace holds no device time inside the frames")
@@ -174,11 +222,25 @@ def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
                          if k in stage_us},
         stage_host_ms={k: host_us[k] / 1e3 / n_frames for k in stage_names
                        if k in host_us},
+        stage_launches={k: stage_ops[k] / n_frames for k in
+                        tuple(stage_names) + ("other",) if k in stage_ops},
+        stage_syncs={k: stage_syncs[k] / n_frames for k in
+                     tuple(stage_names) + ("other",) if k in stage_syncs},
         top_kernels_ms={k: v / 1e3 / n_frames for k, v in top},
         top_kernel_families_ms={k: v / 1e3 / n_frames for k, v in families},
         train_kernels_ms={k: v / 1e3 / n_frames for k, v in kernel_us.items()
                           if "flash_train" in k or "bwd_tc::" in k
                           or "fwd_tc::" in k})
+
+
+def _checkout_main_path(root: str):
+    """`main_path` of the checkout at `root`: its package imported in place
+    of this one's (this module keeps running from here)."""
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "cmtcoop_tpu_torch" and m != __name__]:
+        del sys.modules[name]
+    sys.path.insert(0, str(Path(root).resolve()))
+    return importlib.import_module("cmtcoop_tpu_torch.main_path")
 
 
 def _card() -> str:
@@ -197,6 +259,9 @@ def main(argv=None) -> dict:
                         help="the LiDAR preset's sparse encoder")
     parser.add_argument("--train", action="store_true",
                         help="trace one full-width train step instead")
+    parser.add_argument("--root", help="trace the package of the checkout "
+                        "at ROOT (e.g. the parent commit) instead of this "
+                        "one")
     parser.add_argument("--out", default=str(
         Path(__file__).resolve().parents[1] / "build" / "profile"))
     args = parser.parse_args(argv)
@@ -208,11 +273,12 @@ def main(argv=None) -> dict:
         path = main_path.GATHER_PATH
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: needs a CUDA device")
+    mp = _checkout_main_path(args.root) if args.root else main_path
     dev = torch.device("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     if args.train:
-        model, batch, _, step = main_path.build_train_path(
+        model, batch, _, step = mp.build_train_path(
             dev, span=torch.profiler.record_function)
         instrument(model)
         n, stage_names = 1, STAGES + TRAIN_STAGES
@@ -228,19 +294,19 @@ def main(argv=None) -> dict:
                 step(batch)
                 torch.cuda.synchronize()
     else:
-        model, batch = main_path.build_main_path(dev, path)
+        model, batch = mp.build_main_path(dev, path)
         instrument(model)
         n, stage_names = N_FRAMES, STAGES + tuple(GATHER_STAGES)
         with torch.inference_mode():
-            main_path.frame(model, batch)  # warm-up: the build, launches
+            mp.frame(model, batch)  # warm-up: the build, launches
             t0 = time.perf_counter()
             for _ in range(n):
-                main_path.frame(model, batch)
+                mp.frame(model, batch)
             untraced_ms = (time.perf_counter() - t0) * 1e3 / n
             with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(n):
                     with torch.profiler.record_function("frame"):
-                        main_path.frame(model, batch)
+                        mp.frame(model, batch)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     trace_path = out / "trace.json"
@@ -248,6 +314,7 @@ def main(argv=None) -> dict:
     summary = summarize(json.loads(trace_path.read_text()), n, stage_names)
     summary["preset"] = main_path.TRAIN_PATH if args.train else path
     summary["untraced_frame_ms"] = untraced_ms
+    summary["root"] = str(Path(mp.__file__).resolve().parents[1])
     if args.train:
         summary["traced_peak_memory_gib"] = (
             torch.cuda.max_memory_allocated() / 2 ** 30)

@@ -11,6 +11,8 @@ with TF32 off at max |kernel - plain| <= 1e-4 * max |plain| (summation
 order only); bfloat16 at 2e-2 (output rounding, a few ulps).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -42,8 +44,11 @@ from cmtcoop_tpu_torch.ops.conv_cf import (conv3x3_bn_relu,
                                            osa_aggregate_reference,
                                            pack_conv3x3_weight,
                                            pack_osa_weight, sm_count)
-from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, sorted_lookup,
-                                                 sorted_lookup_reference)
+from cmtcoop_tpu_torch.ops import sparse_utils as su
+from cmtcoop_tpu_torch.ops.lookup_kernel import (INT32_MAX, neighbor_map,
+                                                 neighbor_map_reference,
+                                                 sorted_lookup)
+from cmtcoop_tpu_torch.models.sparse_encoder import SparseEncoder
 from cmtcoop_tpu_torch.ops.pillar_fused import (active_rows,
                                                 fold_occupancy,
                                                 fused_pillar_conv,
@@ -410,6 +415,60 @@ def test_profile_gather_spans_leave_the_model_unchanged():
     names = {e.key for e in prof.key_averages()}
     assert set(profile_path.GATHER_STAGES) <= names
     assert "pillarize" not in names
+    for o, r in zip(got, ref):
+        for key in r:
+            torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
+
+
+def test_profile_summary_counts_launches_and_syncs_per_stage():
+    """Device ops (kernels, copies, memsets) counted per stage by the span
+    that launched them, host synchronize calls by the span they sit in,
+    per frame; a map span inside the encoder's takes its own."""
+    def ev(cat, name, ts, dur, corr=None):
+        return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
+                    args={} if corr is None else {"correlation": corr})
+    trace = {"traceEvents": [
+        ev("user_annotation", "frame", 0, 100),
+        ev("user_annotation", "pillar encoder", 10, 80),
+        ev("user_annotation", "pillar maps", 20, 20),
+        ev("cuda_runtime", "cudaLaunchKernel", 25, 1, corr=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 30, 1, corr=2),
+        ev("cuda_runtime", "cudaLaunchKernel", 50, 1, corr=3),
+        ev("cuda_runtime", "cudaMemcpyAsync", 60, 1, corr=4),
+        ev("cuda_runtime", "cudaStreamSynchronize", 61, 5),
+        ev("cuda_runtime", "cudaDeviceSynchronize", 95, 3),
+        ev("cuda_runtime", "cudaDeviceSynchronize", 150, 3),  # no frame
+        ev("kernel", "nmap::neighbor_map_kernel", 26, 2, corr=1),
+        ev("kernel", "nmap::neighbor_map_kernel", 31, 2, corr=2),
+        ev("kernel", "sort", 51, 5, corr=3),
+        ev("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 62, 1,
+           corr=4),
+    ]}
+    got = profile_path.summarize(trace, 1)
+    assert got["stage_launches"] == {"pillar maps": 2, "pillar encoder": 2}
+    assert got["stage_syncs"] == {"pillar encoder": 1, "other": 1}
+    assert got["stage_host_ms"]["pillar maps"] == pytest.approx(0.02)
+    assert got["stage_device_ms"]["pillar maps"] == pytest.approx(0.004)
+
+
+def test_profile_pillar_map_spans_leave_the_model_unchanged():
+    """The pillar encoder's map builders get a `pillar maps` span a call
+    during its forward (a subm map a level and a down map between levels,
+    per agent), put back after it, and the spans change nothing."""
+    model = slice_model()
+    random_init_(model, torch.Generator().manual_seed(2))
+    batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
+    builders = (pu.pillar_neighbor_map, pu.pillar_conv_neighbor_map)
+    with torch.inference_mode():
+        ref, _ = model(batch)
+        profile_path.instrument(model)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got, _ = model(batch)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    n_levels = len(model.vehicle_model.pts_middle_encoder.encoder_channels)
+    assert counts[profile_path.PILLAR_MAPS] == 2 * (2 * n_levels - 1)
+    assert (pu.pillar_neighbor_map, pu.pillar_conv_neighbor_map) == builders
     for o, r in zip(got, ref):
         for key in r:
             torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
@@ -1200,26 +1259,127 @@ def _on_card_matches_cpu(model_fn, batch, kernels):
                                        atol=1e-3)
 
 
+def _sorted_sites(rng, shape, n, cap):
+    """(coords (cap, D) int32, mask (cap,)): n distinct random cells of
+    `shape` in ascending linear order, every corner cell among them, then
+    padding rows (coords -1)."""
+    cells = int(np.prod(shape))
+    corners = [np.ravel_multi_index([(s - 1) * b for s, b in zip(shape, bits)],
+                                    shape)
+               for bits in itertools.product((0, 1), repeat=len(shape))]
+    lin = np.unique(np.concatenate([corners, rng.choice(
+        cells, max(n - len(corners), 0), replace=False)]))
+    coords = np.full((cap, len(shape)), -1, np.int32)
+    coords[:len(lin)] = np.stack(np.unravel_index(lin, shape), -1)
+    return torch.from_numpy(coords), torch.arange(cap) < len(lin)
+
+
+# kernel 9's card cases: (grid shape, sites, cap, kernel, stride, pad, what
+# the output sites are); "subm": the grid's own sites, "down": the
+# downsample grid of a strided conv, "shuffled": the sites in random order
+# (brackets as wide as the key array), "no keys": an input grid of padding
+# rows only, "tail": 900 padding rows after 100 sites (warps of padding
+# rows only), "empty": no output site
+NMAP_CASES = {
+    "pillar 3x3": ((180, 200), 12000, 12800, (3, 3), 1, 1, "subm"),
+    "pillar 5x3": ((180, 200), 12000, 12800, (5, 3), 1, (2, 1), "subm"),
+    "pillar down": ((180, 200), 12000, 12800, (3, 3), 2, 1, "down"),
+    "voxel 3x3x3": ((41, 200, 200), 30000, 32768, (3, 3, 3), 1, 1, "subm"),
+    "voxel 3x1x3": ((41, 200, 200), 30000, 32768, (3, 1, 3), 1, (1, 0, 1),
+                    "subm"),
+    "voxel down": ((41, 200, 200), 30000, 32768, (3, 3, 3), 2, (0, 1, 1),
+                   "down"),
+    "conv_out": ((11, 60, 60), 9000, 9216, (3, 1, 1), (2, 1, 1), 0,
+                 "down"),
+    "full width": ((41, 1440, 1440), 65536, 65536, (3, 3, 3), 1, 1, "subm"),
+    "shuffled": ((41, 200, 200), 30000, 32768, (3, 3, 3), 1, 1, "shuffled"),
+    "no keys": ((41, 200, 200), 0, 4096, (3, 3, 3), 2, 1, "no keys"),
+    "tail": ((9, 30, 30), 100, 1000, (3, 3, 3), 1, 1, "subm"),
+    "empty": ((9, 30, 30), 100, 128, (3, 3, 3), 2, 1, "empty"),
+}
+
+
+def _nmap_case(name):
+    """(keys, coords, mask, shape, kernel, stride, pad) of one of
+    `NMAP_CASES`, on the CPU."""
+    shape, n, cap, ks, st, pad, kind = NMAP_CASES[name]
+    rng = np.random.default_rng(len(name))
+    coords, mask = _sorted_sites(rng, shape, max(n, 1), cap)
+    mask &= n > 0
+    coords = torch.where(mask[:, None], coords, -1).int()
+    dims = len(shape)
+    grid = (pu.PillarGrid(coords, mask, shape, 1) if dims == 2
+            else su.SparseGrid(coords, mask, shape))
+    keys = grid.linear_ids
+    out_c, out_m = coords, mask
+    if kind == "down" and dims == 2:
+        out = pu.pillar_downsample_grid(grid, cap, st, ks[0], pad)
+        out_c, out_m = out.coords, out.mask
+    elif kind in ("down", "no keys", "empty"):
+        ks3, st3, pad3 = (tuple(v) if not isinstance(v, int) else (v,) * 3
+                          for v in (ks, st, pad))
+        src = su.SparseGrid(*_sorted_sites(rng, shape, 3000, 3072), shape) \
+            if kind == "no keys" else grid
+        out = su.downsample_output_grid(src, ks3, st3, pad3,
+                                        0 if kind == "empty" else cap)
+        out_c, out_m = out.coords, out.mask
+    elif kind == "shuffled":
+        perm = torch.from_numpy(rng.permutation(cap))
+        out_c, out_m = coords[perm].contiguous(), mask[perm].contiguous()
+    return keys, out_c, out_m, shape, ks, st, pad
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("run", [1, 3])
-@pytest.mark.parametrize("n_keys,n_q,tail", [(65536, 200000, 0),
-                                             (1000, 27 * 1000, 300),
-                                             (0, 17, 0), (5, 1, 3)])
-def test_sorted_lookup_kernel_matches_plain(run, n_keys, n_q, tail):
-    """Kernel 9 against `torch.searchsorted` (its plain version): bit-equal
-    pos and hit, queries unsorted with sentinels in the middle, an empty
-    key array and ragged grids included; one launch per call."""
+@pytest.mark.parametrize("name", list(NMAP_CASES))
+def test_neighbor_map_kernel_matches_plain(name):
+    """Kernel 9 against its plain version, bit-equal: 2-D and 3-D tap
+    tables, strided maps, conv_out's, the full-width key count, sites in
+    random order, no keys, warps of padding rows, no output site; one
+    launch a map (none for no output site)."""
     dev = cuda_device()
-    keys, q = _lookup_case(torch.Generator().manual_seed(n_q), n_keys, n_q,
-                           tail)
-    keys, q = keys.to(dev), q.to(dev)
-    before = _build.launch_counts["sorted_lookup"]
-    got = sorted_lookup(keys, q, run=run)
-    ref = sorted_lookup_reference(keys, q, run=run)
+    keys, coords, mask, *geom = _nmap_case(name)
+    keys, coords, mask = keys.to(dev), coords.to(dev), mask.to(dev)
+    before = _build.launch_counts["neighbor_map"]
+    got = neighbor_map(keys, coords, mask, *geom)
     torch.cuda.synchronize()
-    assert _build.launch_counts["sorted_lookup"] == before + 1
-    for a, b in zip(got, ref):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert _build.launch_counts["neighbor_map"] == before + (
+        coords.shape[0] > 0)
+    ref = neighbor_map_reference(keys, coords, mask, *geom)
+    assert got.dtype == ref.dtype == torch.int32 and torch.equal(got, ref)
+    if name not in ("no keys", "empty"):
+        assert (got < keys.shape[0]).any()
+
+
+@pytest.mark.cuda
+def test_map_builders_run_without_a_host_sync():
+    """The pillar encoder's map builders over three levels and the gather
+    encoder's `maps` make no host synchronisation, and each map is one
+    kernel-9 launch."""
+    dev = cuda_device()
+    rng = np.random.default_rng(3)
+    pc, pm = _sorted_sites(rng, (120, 120), 3000, 3072)
+    grid = pu.PillarGrid(pc.to(dev), pm.to(dev), (120, 120), 9)
+    vc, vm = (t.to(dev) for t in _sorted_sites(rng, (41, 120, 120), 6000,
+                                               6144))
+    enc = SparseEncoder(sparse_shape=(41, 120, 120),
+                        stage_caps=(8192, 4096, 2048, 2048))
+    torch.cuda.synchronize()
+    before = _build.launch_counts["neighbor_map"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keys = grid.linear_ids
+        pu.pillar_neighbor_map(grid, keys=keys)
+        for cap in (4096, 2048):
+            out = pu.pillar_downsample_grid(grid, cap)
+            pu.pillar_conv_neighbor_map(grid, out, keys=keys)
+            grid, keys = out, out.linear_ids
+            pu.pillar_neighbor_map(grid, keys=keys)
+        maps = enc.maps(vc, vm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["neighbor_map"] == before + 5 + 8
+    assert len(maps.subm) == 4 and len(maps.down) == 4
 
 
 @pytest.mark.cuda
