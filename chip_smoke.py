@@ -83,15 +83,37 @@ Phases, each raising on failure (the script then exits non-zero):
      forward (kernels, float32) against the CPU
      forward (plain versions) on the same weights and inputs; and one train
      step of the small fusion detector (dropout 0), GPU (kernels 7 and 8)
-     against CPU, its loss dict and every gradient.
+     against CPU, its loss dict and every gradient;
+  7. the training runtime, on the preset's own widths and caps of
+     `cmt_fusion_coop_tumtraf` (bfloat16) and the synthetic stream of
+     data/synthetic.py: the port's CLI (`tools/train.py`, `main(argv)`)
+     trains 4 steps, logging every step: 4 finite `metrics.jsonl` rows,
+     checkpoints at steps 2 and 4, kernels 7, 8 and 9 launched and 1 to 6
+     not; a second `Trainer` resumes from step 2 on the stream from its
+     third batch: step 3's losses bit-equal to the first run's, every loss
+     term and gradient norm of steps 3 and 4 within RESUME_TOL relative
+     (both runs under PyTorch's deterministic algorithms), keep-1
+     checkpoints leaving only the newest; its eval hook at step 4 runs the
+     eval runner (`run_eval`, a separate eval-mode detector in bfloat16
+     loaded with the trained state_dict) over a 2-sample synthetic val
+     set scored by the nusc protocol: finite mAP and NDS, kernels 1, 2, 3,
+     4, 6 and 9 launched; after one more train step the held eval model,
+     reloaded, gives the boxes of a fresh eval model loaded with the same
+     state_dict, bit for bit (its packed operands follow the weights);
+     3 more Trainer steps against the bare step on the same batch; a
+     spawned `PrefetchLoader` after CUDA init yields the thread mode's
+     stream. It prints each checkpoint save's ms and bytes, the restore
+     ms, the Trainer's and the bare step's ms/step (phase 5's beside
+     them), eval ms/sample and the phase's peak memory, with the card's
+     name and power limit, as one `{"runtime": ...}` JSON line.
 
 Before the last line come a JSON object with one entry per kernel (its
-launches on each main path, its worst bfloat16 error, its first case's
-kernel, plain and library times and its bound, and `cases`: those numbers
-for every bf16 case) and the card's name and power limit from
-`nvidia-smi`; the last line is `{"ok": true, "device":
-{...}}`. Without a CUDA device, or run outside a checkout, it exits
-non-zero and prints no result.
+launches on each main path and on phase 7's Trainer and eval runner, its
+worst bfloat16 error, its first case's kernel, plain and library times
+and its bound, and `cases`: those numbers for every bf16 case) and the
+card's name and power limit from `nvidia-smi`; the last line is `{"ok":
+true, "device": {...}}`. Without a CUDA device, or run outside a
+checkout, it exits non-zero and prints no result.
 """
 import copy
 import json
@@ -102,6 +124,7 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -1342,7 +1365,8 @@ def slice_parity(name, model, batch, kernels, dev):
 def run_train(dev):
     """Phase 5: the full-width train step, warm-up plus N_FRAMES timed
     steps, and the checks of the module docstring. Returns the launch
-    counts of the timed steps and their launches per (kernel, shape)."""
+    counts of the timed steps, their launches per (kernel, shape) and the
+    mean ms/step."""
     from cmtcoop_tpu_torch import _build, main_path
     from cmtcoop_tpu_torch.models import cmt_loss
     model, batch, opt, step = main_path.build_train_path(dev)
@@ -1416,7 +1440,7 @@ def run_train(dev):
     for i, m in enumerate(metrics):
         log(f"train step {i + 1} metrics: " + json.dumps(
             {k: round(v, 6) for k, v in m.items()}))
-    return launches, shapes
+    return launches, shapes, sum(times) / len(times)
 
 
 def train_parity(dev):
@@ -1473,6 +1497,321 @@ def train_parity(dev):
             got_l) or used != set(main_path.PATH_KERNELS[
                 main_path.TRAIN_PATH])):
         raise AssertionError("train parity failed")
+
+
+# phase 7: the training runtime. The resumed run's first step replays the
+# first run's losses bit for bit; under PyTorch's deterministic algorithms
+# its backward does too, and every loss term and gradient norm of the
+# resumed steps is held to RESUME_TOL relative (printed: whether bit-equal).
+# Without them the backward's scatter-adds sum in a varying order, and two
+# runs drift apart by percents within two steps (PERF.md, §6)
+RESUME_TOL = 1e-3
+RUNTIME_STEPS = 4  # the CLI run, checkpointed at steps 2 and 4
+VAL_SAMPLES = 2
+VAL_SEED = 100  # the val scenes' seeds: not among the training stream's
+
+
+class SyntheticValSet:
+    """A val split in memory for the eval runner: `synthetic_sample(preset,
+    VAL_SEED + i, with_gt=True)`; `ds[i]` the model inputs, the GT boxes as
+    eval boxes (bottom-centred again), scored by the port's nusc protocol."""
+
+    def __init__(self, preset, n):
+        from cmtcoop_tpu_torch.data import formats
+        from cmtcoop_tpu_torch.data.synthetic import synthetic_sample
+        self.class_names = preset.class_names
+        self.infos, self.samples, self.gt = [], [], {}
+        for i in range(n):
+            s = synthetic_sample(preset, np.random.default_rng(VAL_SEED + i))
+            ts = 1000 + i
+            self.infos.append({"timestamp": ts})
+            m = s["gt_mask"]
+            boxes = s["gt_boxes"][m].copy()
+            boxes[:, 2] -= boxes[:, 5] / 2
+            self.gt[ts] = formats.gt_to_eval_boxes(
+                boxes, s["gt_labels"][m], self.class_names, ts)
+            self.samples.append({k: v for k, v in s.items()
+                                 if not k.startswith("gt_")})
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def evaluate(self, preds, output_dir=None):
+        from cmtcoop_tpu_torch.data.eval import nusc_protocol
+        return nusc_protocol.evaluate_detection(
+            self.gt, preds, self.class_names, output_dir=output_dir)
+
+
+class StubDataset:
+    """Picklable (index, epoch) samples for the spawned loader workers."""
+
+    def __init__(self, n):
+        self.n, self.epoch = n, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = int(epoch)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return {"idx": np.array([i]), "epoch": np.array([self.epoch])}
+
+
+def metric_rows(work_dir):
+    with open(Path(work_dir) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def rel_err(a, b):
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+
+
+def run_runtime(dev, bare_train_ms, smi):
+    """Phase 7: the training runtime on the card at full width (the module
+    docstring's checks). Returns the launch counts of the CLI's training
+    run and of the eval runner."""
+    import itertools
+    import tempfile
+    from cmtcoop_tpu_torch import _build, main_path
+    from cmtcoop_tpu_torch.configs.presets import get_preset
+    from cmtcoop_tpu_torch.data.loader import PrefetchLoader
+    from cmtcoop_tpu_torch.data.synthetic import synthetic_batch_iter
+    from cmtcoop_tpu_torch.models.build import build_detector
+    from cmtcoop_tpu_torch.tools import train as train_cli
+    from cmtcoop_tpu_torch.train import checkpoint as ckpt
+    from cmtcoop_tpu_torch.train.eval_hook import run_eval, to_device
+    from cmtcoop_tpu_torch.train.trainer import Trainer
+    name = main_path.FUSION_PRESET
+    preset = get_preset(name)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": smi, "preset": name}
+    saves = []
+    save = ckpt.save_checkpoint
+
+    def timed_save(ckpt_dir, step, state, max_keep=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, state, max_keep)
+        saves.append(dict(step=step, ms=(time.perf_counter() - t0) * 1e3,
+                          bytes=Path(path).stat().st_size))
+        return path
+
+    def finite_rows(rows, steps, what):
+        if [r["step"] for r in rows] != list(steps) or not all(
+                math.isfinite(v) for r in rows for k, v in r.items()
+                if k != "step"):
+            raise AssertionError(f"{what}: metrics rows {rows}")
+
+    ckpt.save_checkpoint = timed_save
+    # the two training runs, the eval hook and the stale-pack check take
+    # PyTorch's deterministic algorithms (the sums of `index_add_` and of
+    # the gather convs' backward in a fixed order), so that the resumed run
+    # can replay the first one past its first step; timings come after
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # 7.1 the CLI, through main(argv), on the preset's own widths
+            cli_dir = Path(tmp) / "cli"
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            cli = train_cli.main([
+                name, "--synthetic", "--steps", str(RUNTIME_STEPS),
+                "--epochs", "2", "--dtype", "bfloat16", "--seed", str(SEED),
+                "--work-dir", str(cli_dir), "--log-interval", "1"])
+            torch.cuda.synchronize()
+            out["cli_s"] = time.perf_counter() - t0
+            train_launches = dict(_build.launch_counts)
+            del cli
+            rows = metric_rows(cli_dir)
+            finite_rows(rows, range(1, RUNTIME_STEPS + 1), "CLI run")
+            steps = ckpt.all_steps(cli_dir / "ckpts")
+            if steps != [2, 4]:
+                raise AssertionError(f"CLI run: checkpoints at {steps}")
+            kernels = main_path.PATH_KERNELS[main_path.TRAIN_PATH]
+            for k in _build.KERNELS:
+                if (train_launches[k] > 0) != (k in kernels):
+                    raise AssertionError(f"CLI run: kernel {k} launched "
+                                         f"{train_launches[k]} times")
+            out["cli_ms_per_step"] = [r["sec_per_step"] * 1e3 for r in rows]
+            torch.cuda.empty_cache()
+
+            # 7.2 resume from step 2, the stream from its third batch, with
+            # the eval hook at step 4 and keep-1 checkpoints every step
+            val = SyntheticValSet(preset, VAL_SAMPLES)
+            holder, evals = {}, []
+
+            def eval_hook(state, step):
+                if "model" not in holder:
+                    holder["model"] = build_detector(
+                        preset, dtype=torch.bfloat16).to(dev)
+                model = holder["model"]
+                model.load_state_dict(state["model"])
+                _build.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                summary, preds = run_eval(model, val, preset)
+                torch.cuda.synchronize()
+                evals.append(dict(step=step, preds=preds,
+                                  ms=(time.perf_counter() - t0) * 1e3,
+                                  launches=dict(_build.launch_counts)))
+                return {"object/map": float(summary["mean_ap"]),
+                        "object/nds": float(summary["nd_score"])}
+
+            res_dir = Path(tmp) / "resumed"
+            trainer = Trainer(build_detector(preset, train=True,
+                                             dtype=torch.bfloat16),
+                              preset.tasks, total_steps=RUNTIME_STEPS,
+                              work_dir=str(res_dir), log_interval=1,
+                              ckpt_interval_steps=1, max_keep_ckpts=1,
+                              seed=SEED, device=dev)
+            trainer.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not trainer.resume(str(cli_dir / "ckpts"), step=2):
+                raise AssertionError("resume found no checkpoint")
+            torch.cuda.synchronize()
+            out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            if trainer.step != 2:
+                raise AssertionError(f"resumed at step {trainer.step}")
+            stream = synthetic_batch_iter(preset, 1, SEED)
+            trainer.run(itertools.islice(stream, 2, None), eval_hook=eval_hook,
+                        eval_interval_steps=RUNTIME_STEPS)
+            res_rows = metric_rows(res_dir)
+            finite_rows([r for r in res_rows if "eval" not in r], (3, 4),
+                        "resumed run")
+            ref = {r["step"]: r for r in rows}
+            got = {r["step"]: r for r in res_rows if "eval" not in r}
+            losses = [k for k in ref[3]
+                      if k not in ("step", "sec_per_step", "grad_norm")]
+            step3_equal = all(got[3][k] == ref[3][k] for k in losses)
+            errs = {(s, k): abs(got[s][k] - ref[s][k]) / max(abs(ref[s][k]),
+                                                             1e-12)
+                    for s in (3, 4) for k in losses + ["grad_norm"]}
+            worst = max(errs, key=errs.get)
+            out.update(resume_step3_losses_bit_equal=step3_equal,
+                       resume_steps_3_4_bit_equal=not any(errs.values()),
+                       resume_max_rel_err=errs[worst],
+                       resume_max_rel_err_at=list(worst))
+            kept = ckpt.all_steps(res_dir / "ckpts")
+            log(f"resume: step 3 losses bit-equal {step3_equal}; steps 3 and "
+                f"4, every loss term and grad_norm, bit-equal "
+                f"{out['resume_steps_3_4_bit_equal']}, max rel err "
+                f"{errs[worst]:.3e} at step {worst[0]} {worst[1]} "
+                f"({got[worst[0]][worst[1]]!r} against "
+                f"{ref[worst[0]][worst[1]]!r}; tol {RESUME_TOL:g}); keep-1 "
+                f"left {kept}")
+            if not step3_equal or errs[worst] > RESUME_TOL:
+                raise AssertionError("resume does not replay the first run")
+            if kept != [RUNTIME_STEPS]:
+                raise AssertionError(f"keep-1 left checkpoints {kept}")
+            eval_rows = [r for r in res_rows if "eval" in r]
+            out["eval_row"] = eval_rows
+
+            # 7.3 the eval runner: the hook's run at step 4
+            (first,) = evals
+            ev = eval_rows[0]["eval"] if eval_rows else {}
+            if not (len(eval_rows) == 1 and all(
+                    math.isfinite(ev.get(k, math.nan))
+                    for k in ("object/map", "object/nds"))):
+                raise AssertionError(f"eval rows {eval_rows}")
+            eval_kernels = main_path.PATH_KERNELS[main_path.FUSION_PRESET]
+            eval_launches = first["launches"]
+            for k in _build.KERNELS:
+                if (eval_launches[k] > 0) != (k in eval_kernels):
+                    raise AssertionError(f"eval runner: kernel {k} launched "
+                                         f"{eval_launches[k]} times")
+            if not all(first["preds"].values()):
+                raise AssertionError("eval runner: a sample with no box")
+            # stale packs: another train step, the held eval model reloaded,
+            # against a fresh eval model loaded from the same state_dict
+            batch = to_device(next(synthetic_batch_iter(preset, 1, SEED)), dev)
+            trainer.step_fn(batch)
+            held = holder["model"]
+            sd = trainer.model.state_dict()
+            timed = {}
+            fresh = build_detector(preset, dtype=torch.bfloat16).to(dev)
+            for what, model in (("reloaded", held), ("fresh", fresh)):
+                model.load_state_dict(sd)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timed[what] = run_eval(model, val, preset)[1]
+                torch.cuda.synchronize()
+                out[f"eval_ms_per_sample_{what}"] = (
+                    (time.perf_counter() - t0) * 1e3 / len(val))
+            out["eval_ms_per_sample_hook"] = first["ms"] / len(val)
+            stale_ok = timed["reloaded"] == timed["fresh"]
+            moved = timed["fresh"] != first["preds"]
+            log(f"eval runner: step-4 map {ev['object/map']:.4f} nds "
+                f"{ev['object/nds']:.4f} over {len(val)} samples; after "
+                f"another step the reloaded eval model equals a fresh one: "
+                f"{stale_ok} (its boxes moved: {moved}); launches "
+                f"{eval_launches}")
+            if not (stale_ok and moved):
+                raise AssertionError("stale-pack check failed")
+            del holder, held
+
+            # timings in PyTorch's default (nondeterministic) mode: eval
+            # with the packs held, the Trainer against the bare step on the
+            # same synthetic batches
+            torch.use_deterministic_algorithms(False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_eval(fresh, val, preset)
+            torch.cuda.synchronize()
+            out["eval_ms_per_sample_steady"] = (
+                (time.perf_counter() - t0) * 1e3 / len(val))
+            del fresh
+            trainer.total_steps = trainer.step + 3
+            trainer.ckpt_interval_steps = None
+            trainer.run(itertools.islice(stream, 3))
+            tail = metric_rows(res_dir)[-3:]
+            out["trainer_ms_per_step"] = [r["sec_per_step"] * 1e3
+                                          for r in tail]
+            bare = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.step_fn(batch)
+                float(m["loss"])
+                bare.append((time.perf_counter() - t0) * 1e3)
+            out["bare_step_ms_same_batch"] = bare
+            trainer.close()
+            del trainer, batch
+        finally:
+            ckpt.save_checkpoint = save
+            torch.use_deterministic_algorithms(False)
+    out["saves"] = saves
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["phase5_bare_ms_per_step"] = bare_train_ms
+    torch.cuda.empty_cache()
+
+    # 7.4 spawned loader workers after CUDA init against threads
+    kw = dict(batch_size=2, num_workers=2, shuffle_seed=SEED)
+    streams = []
+    for procs in (False, True):
+        it = PrefetchLoader(StubDataset(12), np.arange(12),
+                            use_processes=procs, **kw).iter_steps(3)
+        streams.append([(b["idx"].tolist(), b["epoch"].tolist())
+                        for b in itertools.islice(it, 5)])
+        it.close()
+    out["spawn_loader_equals_threads"] = streams[0] == streams[1]
+    if streams[0] != streams[1]:
+        raise AssertionError(f"spawned loader {streams[1]} != threads "
+                             f"{streams[0]}")
+    log(f"runtime phase: saves {saves}, restore {out['restore_ms']:.1f} ms, "
+        f"Trainer ms/step {out['trainer_ms_per_step']} against the bare step "
+        f"{[round(t, 1) for t in bare]} ms on the same batch (phase 5's "
+        f"benchmark batch {bare_train_ms:.1f}), eval ms/sample "
+        f"{out['eval_ms_per_sample_steady']:.1f} (hook's first "
+        f"{out['eval_ms_per_sample_hook']:.1f}), peak "
+        f"{out['peak_gib']:.2f} GiB, spawned loader after CUDA init equals "
+        f"threads; {smi}")
+    print(json.dumps({"runtime": out}), flush=True)
+    return train_launches, eval_launches
 
 
 def main():
@@ -1560,7 +1899,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. the train path
-    launches[main_path.TRAIN_PATH], train = run_train(dev)
+    launches[main_path.TRAIN_PATH], train, train_ms = run_train(dev)
     per_run(results, train, "flash_train_fwd", "SDPA", "train_step",
             "train")
     for name in ("flash_train_bwd_dq", "flash_train_bwd_dkv"):
@@ -1589,6 +1928,11 @@ def main():
                  small_fusion_batch(),
                  main_path.PATH_KERNELS[main_path.FUSION_PRESET], dev)
     train_parity(dev)
+    torch.cuda.empty_cache()
+
+    # 7. the training runtime: the CLI, resume, the eval runner, the loader
+    launches["trainer"], launches["eval runner"] = run_runtime(dev, train_ms,
+                                                               smi)
 
     kernels = []
     for name in _build.KERNELS:

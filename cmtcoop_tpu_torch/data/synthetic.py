@@ -1,13 +1,111 @@
-"""Synthetic cooperative batches, numpy only: the clouds and layout of the
-JAX package's benchmark batch (`__graft_entry__._raycast_cloud` and
-`_coop_batch`), drawing from the generator in the same order, so one seed
-gives the same clouds in both packages; and the small batches of the port's
-parity checks."""
+"""Synthetic inputs, numpy only, drawing from their generators in the same
+order as the JAX package's, so one seed gives the same arrays in both:
+
+- the training stream of `--synthetic` runs (`synthetic_scene`,
+  `synthetic_sample`, `synthetic_batch_iter`; cmtcoop_tpu/data/synthetic.py):
+  scenes of a few boxes whose surfaces are dense point clusters, so an
+  overfit run has real signal;
+- the clouds and layout of the JAX package's benchmark batch
+  (`__graft_entry__._raycast_cloud` and `_coop_batch`);
+- the small batches of the port's parity checks."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from cmtcoop_tpu_torch.configs.presets import Preset
+from cmtcoop_tpu_torch.data import formats
+
+
+def synthetic_scene(preset: Preset, rng: np.random.Generator,
+                    n_objects: int = 8, n_bg: int = 4000,
+                    pts_per_obj: int = 300) -> Dict:
+    """`n_objects` boxes in the inner 70% of the preset's range, each with
+    `pts_per_obj` points inside it, over `n_bg` ground points. Returns
+    `points` (N, 5), bottom-centred `gt_boxes_3d` (n, 9), `gt_labels_3d`."""
+    lo = np.asarray(preset.pc_range[:3])
+    hi = np.asarray(preset.pc_range[3:])
+    boxes = np.zeros((n_objects, 9), np.float32)
+    boxes[:, :2] = rng.uniform(lo[:2] * 0.7, hi[:2] * 0.7, (n_objects, 2))
+    boxes[:, 2] = rng.uniform(lo[2] + 0.2, lo[2] + 1.0, n_objects)
+    boxes[:, 3:6] = rng.uniform([1.6, 3.5, 1.4], [2.6, 8.0, 3.5],
+                                (n_objects, 3))
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, n_objects)
+    labels = rng.integers(0, len(preset.class_names), n_objects)
+
+    pts = []
+    for b in boxes:
+        local = rng.uniform(-0.5, 0.5, (pts_per_obj, 3)) * b[3:6]
+        c, s = np.cos(b[6]), np.sin(b[6])
+        x = local[:, 0] * c - local[:, 1] * s + b[0]
+        y = local[:, 0] * s + local[:, 1] * c + b[1]
+        z = local[:, 2] + b[2] + b[5] / 2
+        inten = rng.uniform(0, 1, (pts_per_obj, 1))
+        pts.append(np.concatenate(
+            [np.stack([x, y, z], -1), inten,
+             np.zeros((pts_per_obj, 1))], -1))
+    ground = np.concatenate([
+        rng.uniform(lo, hi, (n_bg, 3)),
+        rng.uniform(0, 1, (n_bg, 1)), np.zeros((n_bg, 1))], -1)
+    ground[:, 2] = lo[2] + np.abs(rng.normal(0, 0.05, n_bg))
+    points = np.concatenate(pts + [ground]).astype(np.float32)
+    return dict(points=points, gt_boxes_3d=boxes,
+                gt_labels_3d=labels.astype(np.int64))
+
+
+def synthetic_sample(preset: Preset, rng: np.random.Generator,
+                     with_gt: bool = True) -> Dict[str, np.ndarray]:
+    """One fixed-shape model sample for the preset's topology: each agent
+    sees the scene's points with its own noise and, with the camera branch,
+    random images (1 view for the vehicle, `num_views` for the others)
+    behind a fixed pinhole `lidar2img`."""
+    prefixes = (("vehicle_", "infrastructure_")
+                if preset.domain == "coop" else ("",))
+    scene = synthetic_scene(preset, rng)
+    sample: Dict = {}
+    for p in prefixes:
+        if preset.use_lidar:
+            noise = rng.normal(0, 0.02, scene["points"].shape).astype(
+                np.float32)
+            sample[p + "points"] = scene["points"] + noise
+        if preset.use_camera:
+            v = preset.num_views if p != "vehicle_" else 1
+            h, w = preset.img_size
+            sample[p + "imgs"] = rng.normal(
+                size=(v, h, w, 3)).astype(np.float32)
+            l2i = np.tile(np.eye(4, dtype=np.float32), (v, 1, 1))
+            l2i[:, 0, 0] = l2i[:, 1, 1] = 1000.0
+            l2i[:, 0, 3] = w / 2
+            l2i[:, 1, 3] = h / 2
+            sample[p + "lidar2img"] = l2i
+    if with_gt:
+        sample["gt_boxes_3d"] = scene["gt_boxes_3d"]
+        sample["gt_labels_3d"] = scene["gt_labels_3d"]
+    out = formats.sample_to_model_batch(
+        sample, max_points=preset.max_points, max_gt=preset.max_gt,
+        prefixes=prefixes, with_gt=with_gt)
+    for p in prefixes:
+        if preset.use_camera:
+            out[p + "imgs"] = sample[p + "imgs"]
+            out[p + "lidar2img"] = sample[p + "lidar2img"]
+            out[p + "img2lidar"] = np.linalg.inv(
+                sample[p + "lidar2img"]).astype(np.float32)
+    return out
+
+
+def synthetic_batch_iter(preset: Preset, batch_size: int,
+                         seed: int = 0,
+                         n_scenes: int = 4) -> Iterator[Dict]:
+    """Cycles a pool of `n_scenes` samples (sample i from `seed + i`) ->
+    overfittable batches of `batch_size`, without end."""
+    pool = [synthetic_sample(preset, np.random.default_rng(seed + i))
+            for i in range(n_scenes)]
+    i = 0
+    while True:
+        batch = [pool[(i + j) % n_scenes] for j in range(batch_size)]
+        i += batch_size
+        yield formats.collate(batch)
 
 
 def raycast_cloud(rng: np.random.Generator, n_beams: int = 64,

@@ -72,10 +72,16 @@ class AdamW:
     """The optimizer over a model's named parameters. `step()` reads each
     parameter's `.grad` (None counts as zero, as every leaf of a JAX
     gradient tree exists), clips, updates in place and returns the global
-    gradient norm before the clip (a device scalar)."""
+    gradient norm before the clip (a device scalar).
+
+    `count` is the number of steps taken: the schedules read it, and the
+    train step draws its generators from it, so `state_dict()` /
+    `load_state_dict()` (the count and `mu` / `nu` keyed by parameter name)
+    make a restored optimizer take the same next step (the counterpart of
+    the JAX `TrainState`'s `step` and `opt_state`)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
-                 total_steps: int):
+                 total_steps: int, base_lr: float = BASE_LR):
         self.names, self.params = [], []
         for name, p in named_params:
             self.names.append(name)
@@ -89,7 +95,7 @@ class AdamW:
             idx = [i for i, n in enumerate(self.names)
                    if group_label(n) == label]
             self.groups[label] = (idx, cyclic_schedule(
-                BASE_LR * lr_mult, total_steps, LR_TARGET_RATIO),
+                base_lr * lr_mult, total_steps, LR_TARGET_RATIO),
                 WEIGHT_DECAY * decay_mult)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -124,3 +130,23 @@ class AdamW:
             torch._foreach_add_(ps, upd, alpha=-lr_sched(c))
         self.count += 1
         return norm
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"count": self.count,
+                "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copies `mu` and `nu` into this optimizer's tensors (keeping their
+        device) and takes the count; the names must be this optimizer's."""
+        for key in ("mu", "nu"):
+            if set(state[key]) != set(self.names):
+                missing = sorted(set(self.names) - set(state[key]))
+                extra = sorted(set(state[key]) - set(self.names))
+                raise KeyError(f"optimizer state {key!r} does not match the "
+                               f"parameters: missing {missing[:5]}, "
+                               f"unexpected {extra[:5]}")
+            for name, t in zip(self.names, getattr(self, key)):
+                t.copy_(state[key][name])
+        self.count = int(state["count"])

@@ -4,7 +4,7 @@
   `convert_state_dict` on the LiDAR and fusion detectors (zero unused
   keys), and its state_dict loads strictly into the port's detectors;
 - the port's presets equal the JAX package's, field by field;
-- no `cmtcoop_tpu_torch` module imports jax;
+- no `cmtcoop_tpu_torch` module imports jax, flax or the JAX package;
 - the port's synthetic batch equals the JAX benchmark batch for one seed.
 """
 import dataclasses
@@ -117,15 +117,26 @@ def test_presets_equal_the_jax_packages(name):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, the subpackages too, imported in a fresh
+    process loads no `jax*` or `flax*` module and no module of the JAX
+    package (`cmtcoop_tpu`, `cmtcoop_tpu.*`), not even a numpy-only one."""
     names = [m.name for m in pkgutil.walk_packages(
         cmtcoop_tpu_torch.__path__, "cmtcoop_tpu_torch.")]
-    assert "cmtcoop_tpu_torch.models.detector" in names
+    assert {"cmtcoop_tpu_torch.models.detector",
+            "cmtcoop_tpu_torch.tools.train",
+            "cmtcoop_tpu_torch.data.eval.nusc_protocol",
+            "cmtcoop_tpu_torch.data.loader",
+            "cmtcoop_tpu_torch.train.trainer",
+            "cmtcoop_tpu_torch.train.checkpoint",
+            "cmtcoop_tpu_torch.train.eval_hook"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
-            "assert 'jax' not in sys.modules, sorted(\n"
-            "    m for m in sys.modules if m.startswith('jax'))\n"
-            "assert 'flax' not in sys.modules\n")
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'cmtcoop_tpu')\n"
+            "             or m.startswith(('jax', 'flax')))\n"
+            "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
