@@ -105,10 +105,36 @@ Phases, each raising on failure (the script then exits non-zero):
      stream. It prints each checkpoint save's ms and bytes, the restore
      ms, the Trainer's and the bare step's ms/step (phase 5's beside
      them), eval ms/sample and the phase's peak memory, with the card's
-     name and power limit, as one `{"runtime": ...}` JSON line.
+     name and power limit, as one `{"runtime": ...}` JSON line;
+  8. the on-disk slice, on `cmt_fusion_coop_tumtraf` at its own widths and
+     caps (bfloat16): a raw TUMTraf-layout archive from the port's
+     `build_raw_archive` (train 6 frames, seed 0; val 3, seed 1; cameras
+     at the TUMTraf Basler cameras' 1200x1920, stored as `.npy`) in a
+     temporary directory; `create_data a9coop_nusc` on it (`main(argv)`):
+     6 and 3 infos, every cloud a finite 5-column `.bin`, a GT database
+     with at least one object; the native geometry library loaded;
+     `build_train_loader` at batch 1 with min(4, cores) workers, in thread
+     and in spawn mode, over its first epoch: the first batch's seconds
+     (the pool's start) and the samples/s of the batches after one a
+     worker, the two modes' batches bit-equal, beside a sample's ms on one
+     core in this process and a batch's bytes; the train CLI on
+     `--data-root` (no `--synthetic`): 4 steps, 2 loader workers, the eval
+     hook at step 4 over 2 val samples: finite losses, one eval record with
+     finite `object/map` and `object/nds`, a checkpoint at step 4, kernels
+     7, 8 and 9 launched by the steps and 1, 2, 3, 4, 6 and 9 by the hook
+     (and no other); the test CLI on that checkpoint over val at batch 2
+     (one full batch and a padded tail): `metrics_summary.json` with a
+     finite `mean_ap`, `results_nusc.json`, the fusion path's kernels
+     launched. It prints whether PIL and torchvision import, the archive's
+     and create_data's seconds, the loader's samples/s in each mode beside
+     the host's cores, the train CLI's ms/step against phase 5's bare step,
+     the eval hook's and the test CLI's ms a sample, the phase's peak
+     memory and the card's name and power limit, as lines and one
+     `{"disk": ...}` JSON line.
 
 Before the last line come a JSON object with one entry per kernel (its
-launches on each main path and on phase 7's Trainer and eval runner, its
+launches on each main path, on phase 7's Trainer and eval runner and on
+phase 8's create_data and loaders, train CLI, eval hook and test CLI, its
 worst bfloat16 error, its first case's kernel, plain and library times
 and its bound, and `cases`: those numbers for every bf16 case) and the
 card's name and power limit from `nvidia-smi`; the last line is `{"ok":
@@ -1561,6 +1587,15 @@ class StubDataset:
         return {"idx": np.array([i]), "epoch": np.array([self.epoch])}
 
 
+def check_launches(what, launches, kernels):
+    """The kernels of `kernels` launched, every other kernel not."""
+    from cmtcoop_tpu_torch import _build
+    for k in _build.KERNELS:
+        if (launches[k] > 0) != (k in kernels):
+            raise AssertionError(f"{what}: kernel {k} launched "
+                                 f"{launches[k]} times")
+
+
 def metric_rows(work_dir):
     with open(Path(work_dir) / "metrics.jsonl") as f:
         return [json.loads(line) for line in f]
@@ -1631,11 +1666,8 @@ def run_runtime(dev, bare_train_ms, smi):
             steps = ckpt.all_steps(cli_dir / "ckpts")
             if steps != [2, 4]:
                 raise AssertionError(f"CLI run: checkpoints at {steps}")
-            kernels = main_path.PATH_KERNELS[main_path.TRAIN_PATH]
-            for k in _build.KERNELS:
-                if (train_launches[k] > 0) != (k in kernels):
-                    raise AssertionError(f"CLI run: kernel {k} launched "
-                                         f"{train_launches[k]} times")
+            check_launches("CLI run", train_launches,
+                           main_path.PATH_KERNELS[main_path.TRAIN_PATH])
             out["cli_ms_per_step"] = [r["sec_per_step"] * 1e3 for r in rows]
             torch.cuda.empty_cache()
 
@@ -1718,12 +1750,9 @@ def run_runtime(dev, bare_train_ms, smi):
                     math.isfinite(ev.get(k, math.nan))
                     for k in ("object/map", "object/nds"))):
                 raise AssertionError(f"eval rows {eval_rows}")
-            eval_kernels = main_path.PATH_KERNELS[main_path.FUSION_PRESET]
             eval_launches = first["launches"]
-            for k in _build.KERNELS:
-                if (eval_launches[k] > 0) != (k in eval_kernels):
-                    raise AssertionError(f"eval runner: kernel {k} launched "
-                                         f"{eval_launches[k]} times")
+            check_launches("eval runner", eval_launches,
+                           main_path.PATH_KERNELS[main_path.FUSION_PRESET])
             if not all(first["preds"].values()):
                 raise AssertionError("eval runner: a sample with no box")
             # stale packs: another train step, the held eval model reloaded,
@@ -1812,6 +1841,257 @@ def run_runtime(dev, bare_train_ms, smi):
         f"threads; {smi}")
     print(json.dumps({"runtime": out}), flush=True)
     return train_launches, eval_launches
+
+
+# phase 8: the on-disk slice. The raw archive's splits (frames, seed) at the
+# TUMTraf Basler cameras' size, so the pipeline downscales for real; the
+# loader in each worker mode over its first epoch at batch 1 (the 6 frames
+# CBGS-resampled to 12): the first batch timed apart (the pool's start),
+# one batch a worker a warm-up (every worker started), the epoch's other
+# batches timed, all inside the epoch (the spawn mode starts a new pool
+# each epoch); the train CLI's steps, its eval hook's samples and the test
+# CLI's batch (3 val frames at 2: one full batch and a padded tail)
+DISK_SPLITS = (("train", 6, 0), ("val", 3, 1))
+DISK_IMG_HW = (1200, 1920)
+DISK_STEPS = 4
+DISK_EVAL_SAMPLES = 2
+
+
+class CountedRuns:
+    """Wraps a function (the train CLI's `make_eval_hook`'s hooks, the test
+    CLI's `run_eval`) to record each call's ms on the card and the kernel
+    launches made inside it."""
+
+    def __init__(self, fn):
+        self.fn, self.runs = fn, []
+
+    def __call__(self, *args, **kwargs):
+        from cmtcoop_tpu_torch import _build
+        before = dict(_build.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.runs.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            launches={k: v - before[k]
+                      for k, v in _build.launch_counts.items()}))
+        return out
+
+
+def run_disk(dev, bare_train_ms, smi):
+    """Phase 8: the on-disk slice on the card (the module docstring's
+    checks). Returns the launch counts of create_data and the loaders, of
+    the train CLI's steps, of its eval hook and of the test CLI."""
+    import os
+    import pickle
+    import tempfile
+    from cmtcoop_tpu_torch import _build, main_path
+    from cmtcoop_tpu_torch.configs.presets import get_preset
+    from cmtcoop_tpu_torch.data import native
+    from cmtcoop_tpu_torch.data.loader import build_train_loader
+    from cmtcoop_tpu_torch.data.synthetic_archive import build_raw_archive
+    from cmtcoop_tpu_torch.tools import create_data
+    from cmtcoop_tpu_torch.tools import test as test_cli
+    from cmtcoop_tpu_torch.tools import train as train_cli
+    from cmtcoop_tpu_torch.train import checkpoint as ckpt
+    name = main_path.FUSION_PRESET
+    preset = get_preset(name)
+    out = {"card": smi, "preset": name, "cpu_count": os.cpu_count()}
+    for mod in ("PIL", "torchvision"):
+        try:
+            out[mod] = __import__(mod).__version__
+        except ImportError:
+            out[mod] = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, data = os.path.join(tmp, "raw"), os.path.join(tmp, "data")
+        work, evald = os.path.join(tmp, "work"), os.path.join(tmp, "eval")
+        _build.reset_counts()
+        # 8.1 the raw archive; 8.2 create_data
+        t0 = time.perf_counter()
+        for split, frames, seed in DISK_SPLITS:
+            build_raw_archive(raw, split, frames, seed, img_hw=DISK_IMG_HW)
+        out["archive_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        create_data.main(["a9coop_nusc", "--root-path", raw,
+                          "--out-dir", data])
+        out["create_data_s"] = time.perf_counter() - t0
+        for split, frames, _ in DISK_SPLITS:
+            with open(os.path.join(
+                    data, f"{preset.ann_prefix}_{split}.pkl"), "rb") as f:
+                infos = pickle.load(f)["infos"]
+            if len(infos) != frames:
+                raise AssertionError(f"create_data: {len(infos)} {split} "
+                                     f"infos, not {frames}")
+            for info in infos:
+                for key in ("vehicle_lidar_path", "infrastructure_lidar_path",
+                            "registered_lidar_path"):
+                    pts = np.fromfile(info[key], np.float32)
+                    if pts.size == 0 or pts.size % 5 or not np.isfinite(
+                            pts).all():
+                        raise AssertionError(f"create_data: {info[key]} is "
+                                             "no finite 5-column cloud")
+        with open(os.path.join(data, preset.ann_prefix.replace(
+                "infos", "dbinfos") + "_train.pkl"), "rb") as f:
+            out["db_objects"] = sum(len(v) for v in pickle.load(f).values())
+        if out["db_objects"] < 1:
+            raise AssertionError("create_data: an empty GT database")
+
+        # 8.3 the train loader in both worker modes
+        if not native.loaded():
+            raise AssertionError("native/libcmtcoop_host.so did not load")
+        workers = min(4, os.cpu_count())
+        loader, _ = build_train_loader(preset, data, 1, num_workers=workers,
+                                       seed=SEED)
+        if loader.dataset.pipeline.db_sampler is None:
+            raise AssertionError("the GT database was not wired in")
+        if len(loader) <= workers:
+            raise AssertionError(f"loader: {len(loader)} batches an epoch")
+        # a sample's host cost on one core (in this process, as a spawned
+        # worker runs it) and the bytes of a batch, which a spawned worker
+        # sends back through the pool's result pipe
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            per = []
+            for b in range(3):
+                t0 = time.perf_counter()
+                batch = loader._make_batch(loader.epoch_indices(0), b)
+                per.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.set_num_threads(threads)
+        out["sample_ms_one_thread"] = per
+        out["batch_bytes"] = sum(v.nbytes for v in batch.values())
+        del batch
+        streams = {}
+        for mode, procs in (("threads", False), ("spawn", True)):
+            loader.use_processes = procs
+            it = loader.iter_epoch(0)
+            t0 = time.perf_counter()
+            streams[mode] = [next(it)]
+            out[f"loader_{mode}_first_batch_s"] = time.perf_counter() - t0
+            streams[mode] += [next(it) for _ in range(workers - 1)]
+            t0 = time.perf_counter()
+            streams[mode] += list(it)
+            out[f"loader_{mode}_samples_per_s"] = (
+                len(loader) - workers) / (time.perf_counter() - t0)
+        out.update(loader_workers=workers, loader_batches=len(loader))
+        same = all(a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a)
+            for a, b in zip(streams["threads"], streams["spawn"]))
+        if not same:
+            raise AssertionError("loader: the spawn mode's batches differ "
+                                 "from the thread mode's")
+        del streams, loader
+        launches["create_data and loaders"] = dict(_build.launch_counts)
+
+        # 8.4 the train CLI on --data-root, its eval hook counted apart
+        hooks = []
+        make_hook = train_cli.make_eval_hook
+
+        def counted_hook(*args, **kwargs):
+            hooks.append(CountedRuns(make_hook(*args, **kwargs)))
+            return hooks[-1]
+
+        train_cli.make_eval_hook = counted_hook
+        _build.reset_counts()
+        try:
+            t0 = time.perf_counter()
+            trainer = train_cli.main([
+                name, "--data-root", data, "--work-dir", work,
+                "--steps", str(DISK_STEPS), "--epochs", "1",
+                "--num-workers", "2", "--eval-interval-steps",
+                str(DISK_STEPS), "--eval-max-samples",
+                str(DISK_EVAL_SAMPLES), "--dtype", "bfloat16",
+                "--seed", str(SEED), "--log-interval", "1"])
+            torch.cuda.synchronize()
+            out["train_cli_s"] = time.perf_counter() - t0
+        finally:
+            train_cli.make_eval_hook = make_hook
+        (evaluated,) = hooks[0].runs
+        del trainer, hooks  # the train model and the hook's eval model
+        launches["eval hook on disk"] = evaluated["launches"]
+        launches["train on disk"] = {
+            k: v - evaluated["launches"][k]
+            for k, v in _build.launch_counts.items()}
+        check_launches("train CLI steps", launches["train on disk"],
+                       main_path.PATH_KERNELS[main_path.TRAIN_PATH])
+        check_launches("train CLI eval hook", launches["eval hook on disk"],
+                       main_path.PATH_KERNELS[main_path.FUSION_PRESET])
+        rows = metric_rows(work)
+        steps = [r for r in rows if "eval" not in r]
+        evals = [r["eval"] for r in rows if "eval" in r]
+        if [r["step"] for r in steps] != list(range(1, DISK_STEPS + 1)) or \
+                not all(math.isfinite(v) for r in steps for v in r.values()):
+            raise AssertionError(f"train CLI: metrics rows {steps}")
+        if len(evals) != 1 or not all(
+                math.isfinite(evals[0].get(k, math.nan))
+                for k in ("object/map", "object/nds")):
+            raise AssertionError(f"train CLI: eval rows {evals}")
+        saved = ckpt.all_steps(os.path.join(work, "ckpts"))
+        if saved != [DISK_STEPS]:
+            raise AssertionError(f"train CLI: checkpoints at {saved}")
+        out["train_ms_per_step"] = [r["sec_per_step"] * 1e3 for r in steps]
+        out["train_losses"] = [r["loss"] for r in steps]
+        out["eval_hook"] = {k: evals[0][k] for k in ("object/map",
+                                                     "object/nds")}
+        out["eval_hook_ms_per_sample"] = evaluated["ms"] / DISK_EVAL_SAMPLES
+        out["phase5_bare_ms_per_step"] = bare_train_ms
+        torch.cuda.empty_cache()
+
+        # 8.5 the test CLI on the step-4 checkpoint, val at batch 2
+        run_eval = test_cli.run_eval
+        test_cli.run_eval = counted = CountedRuns(run_eval)
+        _build.reset_counts()
+        try:
+            t0 = time.perf_counter()
+            summary = test_cli.main([
+                name, os.path.join(work, "ckpts"), "--data-root", data,
+                "--split", "val", "--eval", "bbox", "--work-dir", evald,
+                "--batch-size", "2", "--dtype", "bfloat16"])
+            torch.cuda.synchronize()
+            out["test_cli_s"] = time.perf_counter() - t0
+        finally:
+            test_cli.run_eval = run_eval
+        launches["test CLI"] = dict(_build.launch_counts)
+        check_launches("test CLI", launches["test CLI"],
+                       main_path.PATH_KERNELS[main_path.FUSION_PRESET])
+        with open(os.path.join(evald, "metrics_summary.json")) as f:
+            written = json.load(f)
+        if not (math.isfinite(written["mean_ap"]) and os.path.exists(
+                os.path.join(evald, "results_nusc.json"))):
+            raise AssertionError(f"test CLI: mean_ap {written['mean_ap']}")
+        n_val = DISK_SPLITS[1][1]
+        out["test_cli"] = {"mean_ap": summary["mean_ap"],
+                           "nd_score": summary["nd_score"]}
+        out["test_cli_ms_per_sample"] = counted.runs[0]["ms"] / n_val
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    log(f"on-disk phase: PIL {out['PIL']}, torchvision "
+        f"{out['torchvision']}; archive {out['archive_s']:.1f} s, "
+        f"create_data {out['create_data_s']:.2f} s "
+        f"({out['db_objects']} GT objects); loader at batch 1, "
+        f"{workers} workers of {out['cpu_count']} cores, "
+        f"{out['loader_batches'] - workers} batches timed after one a "
+        f"worker: threads {out['loader_threads_samples_per_s']:.2f} "
+        f"samples/s (first batch {out['loader_threads_first_batch_s']:.2f} "
+        f"s), spawn {out['loader_spawn_samples_per_s']:.2f} (first batch "
+        f"{out['loader_spawn_first_batch_s']:.2f} s); batches bit-equal; "
+        f"a sample on one core {[round(t, 1) for t in per]} ms, a batch "
+        f"{out['batch_bytes'] / 1e6:.1f} MB")
+    log(f"on-disk phase: train CLI ms/step "
+        f"{[round(t, 1) for t in out['train_ms_per_step']]} against phase "
+        f"5's bare step {bare_train_ms:.1f}; eval hook "
+        f"{out['eval_hook_ms_per_sample']:.1f} ms a sample (map "
+        f"{out['eval_hook']['object/map']:.4f}); test CLI "
+        f"{out['test_cli_ms_per_sample']:.1f} ms a sample (mean_ap "
+        f"{summary['mean_ap']:.4f}, {out['test_cli_s']:.1f} s in all); peak "
+        f"{out['peak_gib']:.2f} GiB; {smi}")
+    print(json.dumps({"disk": out}), flush=True)
+    return launches
 
 
 def main():
@@ -1933,6 +2213,9 @@ def main():
     # 7. the training runtime: the CLI, resume, the eval runner, the loader
     launches["trainer"], launches["eval runner"] = run_runtime(dev, train_ms,
                                                                smi)
+
+    # 8. the on-disk slice: archive, create_data, loaders, train, test CLIs
+    launches.update(run_disk(dev, train_ms, smi))
 
     kernels = []
     for name in _build.KERNELS:

@@ -12,18 +12,22 @@ version counter (models/layers.py `_pack_key`), so the trained weights are
 copied in with `load_state_dict` outside inference mode, which bumps the
 counters, and the forward runs under `torch.no_grad()`.
 
-`make_eval_hook(preset, data_root, ...)` needs the on-disk test loader and
-comes with the data path; the Trainer takes any `eval_hook(state, step)`.
+`make_eval_hook(preset, data_root, ...)` builds that model and the on-disk
+test dataset once and returns the Trainer's `eval_hook(state, step)`;
+`run_eval` is also the body of the test CLI (tools/test.py), so the
+mid-training eval and the offline eval are the same code path.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from cmtcoop_tpu_torch.core.coder import decode_boxes
 from cmtcoop_tpu_torch.data import formats
+from cmtcoop_tpu_torch.data.loader import build_test_loader
+from cmtcoop_tpu_torch.models.build import build_detector
 
 CODES = ("center", "height", "dim", "rot", "vel")
 
@@ -83,3 +87,33 @@ def run_eval(model: torch.nn.Module, ds, preset, batch_size: int = 1,
                 dec, preset.class_names, ts)
     summary = ds.evaluate(preds, output_dir=work_dir)
     return summary, (preds if collect_preds else None)
+
+
+def make_eval_hook(preset, data_root: str, split: str = "val",
+                   dtype: torch.dtype = torch.float32, batch_size: int = 1,
+                   max_samples: Optional[int] = None, device="cuda"
+                   ) -> Callable[[Dict[str, Any], int], Dict[str, float]]:
+    """A Trainer `eval_hook(state, step) -> metric dict` over the `split`
+    of the on-disk data under `data_root`.
+
+    One eval-mode detector (computing in `dtype`, on `device`) and one test
+    dataset are built here, once; each call loads the trained state_dict
+    (`state["model"]`) into the detector and runs `run_eval`. Returns
+    `object/map`, `object/nds` and the scorer's numeric details (per-class
+    APs and the TP errors)."""
+    model = build_detector(preset, train=False, dtype=dtype, device=device)
+    ds, _ = build_test_loader(preset, data_root, split=split)
+    forward = make_eval_forward(model)
+
+    def hook(state: Dict[str, Any], step: int) -> Dict[str, float]:
+        model.load_state_dict(state["model"])
+        summary, _ = run_eval(model, ds, preset, batch_size=batch_size,
+                              max_samples=max_samples, forward=forward,
+                              collect_preds=False)
+        out = {"object/map": float(summary["mean_ap"]),
+               "object/nds": float(summary["nd_score"])}
+        out.update({k: float(v) for k, v in summary["detail"].items()
+                    if isinstance(v, (int, float))})
+        return out
+
+    return hook

@@ -119,13 +119,27 @@ def test_presets_equal_the_jax_packages(name):
 def test_port_never_imports_jax():
     """Every module of the port, the subpackages too, imported in a fresh
     process loads no `jax*` or `flax*` module and no module of the JAX
-    package (`cmtcoop_tpu`, `cmtcoop_tpu.*`), not even a numpy-only one."""
+    package (`cmtcoop_tpu`, `cmtcoop_tpu.*`), not even a numpy-only one;
+    nor Pillow, which the data path imports only to decode an image."""
     names = [m.name for m in pkgutil.walk_packages(
         cmtcoop_tpu_torch.__path__, "cmtcoop_tpu_torch.")]
     assert {"cmtcoop_tpu_torch.models.detector",
             "cmtcoop_tpu_torch.tools.train",
+            "cmtcoop_tpu_torch.tools.create_data",
+            "cmtcoop_tpu_torch.tools.test",
             "cmtcoop_tpu_torch.data.eval.nusc_protocol",
             "cmtcoop_tpu_torch.data.loader",
+            "cmtcoop_tpu_torch.data.native",
+            "cmtcoop_tpu_torch.data.datasets",
+            "cmtcoop_tpu_torch.data.pipeline_builder",
+            "cmtcoop_tpu_torch.data.synthetic_archive",
+            "cmtcoop_tpu_torch.data.pipelines.box_np",
+            "cmtcoop_tpu_torch.data.pipelines.loading_utils",
+            "cmtcoop_tpu_torch.data.pipelines.transforms",
+            "cmtcoop_tpu_torch.data.pipelines.dbsampler",
+            "cmtcoop_tpu_torch.data.converters.pcd",
+            "cmtcoop_tpu_torch.data.converters.a9coop",
+            "cmtcoop_tpu_torch.data.converters.a9_nusc",
             "cmtcoop_tpu_torch.train.trainer",
             "cmtcoop_tpu_torch.train.checkpoint",
             "cmtcoop_tpu_torch.train.eval_hook"} <= set(names)
@@ -135,7 +149,7 @@ def test_port_never_imports_jax():
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
             "                                    'cmtcoop_tpu')\n"
-            "             or m.startswith(('jax', 'flax')))\n"
+            "             or m.startswith(('jax', 'flax', 'PIL')))\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
