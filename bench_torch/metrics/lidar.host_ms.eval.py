@@ -1,0 +1,8 @@
+"""Host ms a frame inside the spans of
+the LiDAR branch (pillarize, the pillar encoder with its maps, SECOND and its FPN)."""
+
+SPANS = ["pillarize", "pillar encoder", "SECOND", "FPN"]
+
+
+def read(run):
+    return run.trace.host_ms(SPANS)
