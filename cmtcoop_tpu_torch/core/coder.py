@@ -11,6 +11,7 @@ import torch
 
 from cmtcoop_tpu_torch.core.boxes import (denormalize_bbox,
                                           gravity_to_bottom_center)
+from cmtcoop_tpu_torch.utils.profiling import span
 
 
 class DecodedBoxes(NamedTuple):
@@ -20,6 +21,7 @@ class DecodedBoxes(NamedTuple):
     valid: torch.Tensor   # (max_num,) bool
 
 
+@span("eval.decode")
 def decode_boxes(
     task_logits: Sequence[torch.Tensor],
     task_codes: Sequence[torch.Tensor],

@@ -14,6 +14,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from cmtcoop_tpu_torch.utils.profiling import span
+
 
 def _numpy(x) -> np.ndarray:
     """A tensor (on any device) or an array -> numpy array."""
@@ -86,15 +88,18 @@ def sample_to_model_batch(
     return out
 
 
+@span("eval.boxes")
 def decoded_to_eval_boxes(
     decoded, class_names: Sequence[str], timestamp,
 ) -> List[Dict]:
     """One sample's DecodedBoxes -> the scorer's box-dict list
-    (mirrors _format_bbox, a9coop_dataset.py:293-337)."""
-    boxes = _numpy(decoded.boxes)
-    scores = _numpy(decoded.scores)
-    labels = _numpy(decoded.labels)
-    valid = _numpy(decoded.valid)
+    (mirrors _format_bbox, a9coop_dataset.py:293-337); the reads to the
+    host in span `eval.readback`."""
+    with span("eval.readback"):
+        boxes = _numpy(decoded.boxes)
+        scores = _numpy(decoded.scores)
+        labels = _numpy(decoded.labels)
+        valid = _numpy(decoded.valid)
     out = []
     for i in np.where(valid)[0]:
         b = boxes[i]

@@ -13,7 +13,7 @@ and `tools/probe_train_step.py`.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -101,12 +101,12 @@ def frame(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
     return task_outs, dec
 
 
-def build_train_path(device, span: Optional[Callable] = None):
+def build_train_path(device):
     """(model, batch, optimizer, step) of the full-width train step on
     `device`: `cmt_fusion_coop_tumtraf` in train mode, bfloat16 compute on
     float32 parameters from `SEED`, `TRAIN_MAX_GT` GT slots, the benchmark
     batch with its ground truth, AdamW over `TRAIN_TOTAL_STEPS`; `step(batch)`
-    runs one step (train/train_step.py, `span` as there)."""
+    runs one step (train/train_step.py)."""
     p = get_preset(FUSION_PRESET)
     model = build_detector(p, train=True, dtype=torch.bfloat16,
                            extractor_kwargs=dict(max_voxels=MAX_VOXELS,
@@ -118,7 +118,7 @@ def build_train_path(device, span: Optional[Callable] = None):
                           seed=SEED)
     batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
     optimizer = AdamW(model.named_parameters(), TRAIN_TOTAL_STEPS)
-    step = make_train_step(model, optimizer, p.tasks, SEED, span)
+    step = make_train_step(model, optimizer, p.tasks, SEED)
     return model, batch, optimizer, step
 
 

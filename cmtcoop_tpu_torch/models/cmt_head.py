@@ -31,6 +31,7 @@ from cmtcoop_tpu_torch.core.pos_embed import (bev_pos2embed_grid, depth_bins,
 from cmtcoop_tpu_torch.models.layers import MLP, ConvBNReLU
 from cmtcoop_tpu_torch.models.petr_decoder import PETRTransformerDecoder
 from cmtcoop_tpu_torch.ops.attention import NEG_INF
+from cmtcoop_tpu_torch.utils.profiling import span
 
 COMMON_HEADS: Tuple[Tuple[str, int], ...] = (
     ("center", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
@@ -251,6 +252,7 @@ class CmtHead(nn.Module):
             outs_dec = torch.stack(outs_decs, dim=0).amax(dim=0)
         return self.run_task_heads(outs_dec, padded_ref, dn_info), dn_info
 
+    @span("rv pe")
     def _rv_pe(self, feat_hw, pad_hw, img2lidar):
         """(B, V, Hf, Wf, hidden) position encoding of the image tokens: the
         frustum samples of each cell back-projected by img2lidar, in
@@ -284,6 +286,7 @@ class CmtHead(nn.Module):
                   & z_pos[..., 0])
         return uvz, in_img
 
+    @span("rv pe")
     def _rv_query_embed(self, ref01, lidar2img, img2lidar, pad_hw):
         """Each query projected into every view, back-projected along the
         depth bins, embedded, masked to the views it lands in and summed
@@ -298,6 +301,7 @@ class CmtHead(nn.Module):
         emb = self.rv_embedding(flat.to(self.compute_dtype))
         return (emb * in_img[..., None].to(emb.dtype)).sum(dim=1)
 
+    @span("head memory")
     def build_memory(self, agent: AgentInputs):
         """Token memory (B, T, C) and its PE: the BEV tokens in row-major
         (y, x) order, then the image tokens in (view, h, w) order."""
@@ -319,6 +323,7 @@ class CmtHead(nn.Module):
             pos.append(rv_pos.reshape(b, v * hf * wf, self.hidden_dim))
         return torch.cat(mem, dim=1), torch.cat(pos, dim=1)
 
+    @span("decoder")
     def run_decoder(self, memory, memory_pos, query_pos, generator=None):
         """The decoder over one agent's memory; with DN queries (train) the
         self-attention takes `dn_attn_bias`, its slot count following the
@@ -335,6 +340,7 @@ class CmtHead(nn.Module):
             generator=generator)
         return torch.nan_to_num(outs_dec)
 
+    @span("task heads")
     def run_task_heads(self, outs_dec, padded_ref,
                        dn_info: Optional[DNInfo] = None) -> List[Dict]:
         reference = inverse_sigmoid(padded_ref)

@@ -25,6 +25,7 @@ from cmtcoop_tpu_torch.models.sparse_encoder import SparseEncoder
 from cmtcoop_tpu_torch.models.vovnet import CPFPN, VoVNet
 from cmtcoop_tpu_torch.ops.pillars import pillarize
 from cmtcoop_tpu_torch.ops.voxelize import hard_simple_vfe, voxelize
+from cmtcoop_tpu_torch.utils.profiling import span
 
 # FeatureExtractor settings that select nothing here: the JAX package's TPU
 # image-layout switch. Presets carry it, so it is accepted and has no effect.
@@ -112,6 +113,7 @@ class FeatureExtractor(nn.Module):
                                        second_channels, second_layers)
             self.pts_neck = SECONDFPN(second_channels, fpn_channels)
 
+    @span("pillarize")
     def pillarize(self, points, points_mask, return_stats: bool = False):
         """One sample's cloud -> pillars, with this extractor's settings."""
         return pillarize(points, points_mask, voxel_size=self.voxel_size,
@@ -128,6 +130,7 @@ class FeatureExtractor(nn.Module):
                         max_points=self.max_points_per_voxel,
                         max_voxels=self.max_voxels, return_stats=return_stats)
 
+    @span("voxelize")
     def voxel_features(self, points, points_mask):
         """One sample's cloud -> (voxel means (V, F), the voxels):
         voxelize, then HardSimpleVFE."""
@@ -137,17 +140,20 @@ class FeatureExtractor(nn.Module):
     def encode(self, points, points_mask) -> torch.Tensor:
         """One sample's cloud -> its dense BEV map, through the encoder."""
         if self.encoder_impl == "pillar":
-            return self.pts_middle_encoder(*self.pillarize(points,
-                                                           points_mask),
-                                           dtype=self.compute_dtype)
-        feats, vox = self.voxel_features(points, points_mask)
-        return self.pts_middle_encoder(feats, vox.coords, vox.mask,
-                                       dtype=self.compute_dtype)
+            args = self.pillarize(points, points_mask)
+        else:
+            feats, vox = self.voxel_features(points, points_mask)
+            args = (feats, vox.coords, vox.mask)
+        with span("pillar encoder"):
+            return self.pts_middle_encoder(*args, dtype=self.compute_dtype)
 
     def extract_pts_feat(self, points, points_mask) -> torch.Tensor:
         bev = torch.stack([self.encode(p, m)
                            for p, m in zip(points, points_mask)])
-        return self.pts_neck(self.pts_backbone(bev))
+        with span("SECOND"):
+            x = self.pts_backbone(bev)
+        with span("FPN"):
+            return self.pts_neck(x)
 
     def extract_img_feat(self, imgs, rngs=None) -> torch.Tensor:
         """(B, V, H, W, 3) images -> (B, V, H/16, W/16, C) CPFPN level 0;
@@ -157,8 +163,10 @@ class FeatureExtractor(nn.Module):
         if self.training and self.use_grid_mask:
             x = grid_mask(x, grid_mask_draws(
                 rngs.gridmask if rngs else None, h, w))
-        feats = self.img_backbone(x)
-        f0 = self.img_neck([feats[k] for k in self.img_out_features])[0]
+        with span("image backbone"):
+            feats = self.img_backbone(x)
+        with span("image neck"):
+            f0 = self.img_neck([feats[k] for k in self.img_out_features])[0]
         return f0.reshape(b, v, *f0.shape[1:])
 
     def extract(self, batch: Dict[str, torch.Tensor], prefix: str = "",

@@ -31,6 +31,7 @@ from cmtcoop_tpu_torch.models.layers import BatchNorm, PillarConvPack
 from cmtcoop_tpu_torch.ops import pillars as pu
 from cmtcoop_tpu_torch.ops.pillar_fused import (active_rows, fold_occupancy,
                                                 fused_pillar_conv_packed)
+from cmtcoop_tpu_torch.utils.profiling import count
 
 BN_EPS, BN_MOMENTUM = 1e-3, 0.99  # MaskedBatchNorm (flax momentum)
 DOWN_ZPADS = (1, 1, 0)
@@ -188,7 +189,9 @@ class PillarSparseEncoder(EncoderWeights):
             if down is None:
                 continue
             cap = self.pillar_caps[min(i + 1, len(self.pillar_caps) - 1)]
-            out_grid = pu.pillar_downsample_grid(grid, cap)
+            out_grid, n_out = pu.pillar_downsample_grid(grid, cap,
+                                                        return_n=True)
+            count(f"pillars.l{i + 1}", n_out)  # before the cap
             nbr_dn = pu.pillar_conv_neighbor_map(grid, out_grid, keys=keys)
             zp = DOWN_ZPADS[i]
             if train:

@@ -21,6 +21,7 @@ import torch
 
 from cmtcoop_tpu_torch.models.pillar_encoder import EncoderWeights
 from cmtcoop_tpu_torch.ops import sparse_utils as su
+from cmtcoop_tpu_torch.utils.profiling import span
 
 # the padding (z, y, x) of each stride-2 down conv (encoder_paddings of the
 # reference config; the basic blocks take none)
@@ -72,6 +73,7 @@ class SparseEncoder(EncoderWeights):
                          encoder_channels, output_channels)
         self.stage_caps = tuple(stage_caps)
 
+    @span("sparse maps")
     def maps(self, coords, mask) -> SparseMaps:
         """Every neighbour map and active set of one sample."""
         grid = su.SparseGrid(coords, mask, self.sparse_shape)
@@ -93,6 +95,7 @@ class SparseEncoder(EncoderWeights):
         return SparseMaps(tuple(subm), tuple(masks), tuple(down), grid,
                           tuple(n_sites))
 
+    @span("sparse convs")
     def convs(self, x, maps: SparseMaps) -> torch.Tensor:
         """The conv chain over `maps`, then the densify: (H', W', C*D') in
         torch's `view(N, C*D, H, W)` channel order."""

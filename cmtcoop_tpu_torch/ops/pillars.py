@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from cmtcoop_tpu_torch.ops.lookup_kernel import INT32_MAX, neighbor_map
+from cmtcoop_tpu_torch.utils.profiling import count, span
 
 
 class PillarGrid(NamedTuple):
@@ -36,6 +37,7 @@ class PillarGrid(NamedTuple):
         return torch.where(self.mask, lin, INT32_MAX).to(torch.int32)
 
 
+@span("pillar maps")
 def pillar_neighbor_map(grid: PillarGrid, ky: int = 3, kx: int = 3,
                         keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, ky*kx) int32 gather map of BEV neighbour pillars, taps row-major
@@ -86,6 +88,7 @@ def pillar_downsample_grid(grid: PillarGrid, max_out: int, stride: int = 2,
     return (out, n_uniq) if return_n else out
 
 
+@span("pillar maps")
 def pillar_conv_neighbor_map(in_grid: PillarGrid, out_grid: PillarGrid,
                              stride: int = 2, k: int = 3, pad: int = 1,
                              keys: Optional[torch.Tensor] = None
@@ -200,54 +203,61 @@ def pillarize(points: torch.Tensor, point_mask: torch.Tensor, *,
     n_points_in_range / n_points_dropped."""
     n, f = points.shape
     dev = points.device
-    zyx, valid = compute_voxel_coords(points, point_mask, voxel_size,
-                                      pc_range, grid_size)
     gx = grid_size[0]
     z_ext = grid_size[2] + 1
-    key = (zyx[:, 1] * gx + zyx[:, 2]) * z_ext + zyx[:, 0]
-    key = torch.where(valid, key, INT32_MAX)
-    skey, order = torch.sort(key, stable=True)
-    spts = points[order].float()
-    in_range = skey != INT32_MAX
+    with span("pillarize.sort"):
+        zyx, valid = compute_voxel_coords(points, point_mask, voxel_size,
+                                          pc_range, grid_size)
+        key = (zyx[:, 1] * gx + zyx[:, 2]) * z_ext + zyx[:, 0]
+        key = torch.where(valid, key, INT32_MAX)
+        skey, order = torch.sort(key, stable=True)
+        spts = points[order].float()
+        in_range = skey != INT32_MAX
 
-    first = torch.ones(1, dtype=torch.bool, device=dev)
-    bound = torch.cat([first, skey[1:] != skey[:-1]])
-    head = bound & in_range
-    vrank = torch.cumsum(head.long(), 0) - 1
-    idx = torch.arange(n, device=dev)
-    run_start = torch.cummax(torch.where(bound, idx, -1), 0).values
-    pos_in_run = idx - run_start
-    valid_pt = in_range & (vrank < max_voxels)
+    with span("pillarize.slots"):
+        first = torch.ones(1, dtype=torch.bool, device=dev)
+        bound = torch.cat([first, skey[1:] != skey[:-1]])
+        head = bound & in_range
+        vrank = torch.cumsum(head.long(), 0) - 1
+        idx = torch.arange(n, device=dev)
+        run_start = torch.cummax(torch.where(bound, idx, -1), 0).values
+        pos_in_run = idx - run_start
+        valid_pt = in_range & (vrank < max_voxels)
 
-    pil = torch.where(valid_pt, torch.div(skey, z_ext, rounding_mode="floor"),
-                      INT32_MAX)
-    phead = torch.cat([first, pil[1:] != pil[:-1]]) & (pil != INT32_MAX)
-    prank = torch.cumsum(phead.long(), 0) - 1
-    n_pillars = (torch.where(phead, prank, -1).max() + 1).clamp(
-        0, max_pillars)
-    ok = valid_pt & (pos_in_run < max_points) & (prank < max_pillars)
+        pil = torch.where(valid_pt,
+                          torch.div(skey, z_ext, rounding_mode="floor"),
+                          INT32_MAX)
+        phead = torch.cat([first, pil[1:] != pil[:-1]]) & (pil != INT32_MAX)
+        prank = torch.cumsum(phead.long(), 0) - 1
+        # active BEV cells before the cap (a count above it loses cells)
+        n_raw = torch.where(phead, prank, -1).max() + 1
+        count("pillars.l0", n_raw)
+        n_pillars = n_raw.clamp(0, max_pillars)
+        ok = valid_pt & (pos_in_run < max_points) & (prank < max_pillars)
 
-    slots = torch.arange(max_pillars, device=dev)
-    rank_keys = torch.where(pil != INT32_MAX, prank, INT32_MAX)
-    pstart = torch.searchsorted(rank_keys, slots).clamp(max=n - 1)
-    pmask = slots < n_pillars
-    plin = torch.where(pmask, torch.div(skey[pstart], z_ext,
-                                        rounding_mode="floor"), -1)
-    pcoords = torch.where(pmask[:, None],
-                          torch.stack([plin // gx, plin % gx], -1),
-                          -1).to(torch.int32)
+        slots = torch.arange(max_pillars, device=dev)
+        rank_keys = torch.where(pil != INT32_MAX, prank, INT32_MAX)
+        pstart = torch.searchsorted(rank_keys, slots).clamp(max=n - 1)
+        pmask = slots < n_pillars
+        plin = torch.where(pmask, torch.div(skey[pstart], z_ext,
+                                            rounding_mode="floor"), -1)
+        pcoords = torch.where(pmask[:, None],
+                              torch.stack([plin // gx, plin % gx], -1),
+                              -1).to(torch.int32)
 
-    n_slot = max_pillars * z_ext
-    slot = torch.where(ok, prank * z_ext + skey % z_ext, n_slot)
-    sums = torch.zeros(n_slot + 1, f, dtype=torch.float32, device=dev)
-    sums.index_add_(0, slot, spts)
-    counts = torch.zeros(n_slot + 1, dtype=torch.float32, device=dev)
-    counts.index_add_(0, slot, torch.ones_like(slot, dtype=torch.float32))
-    sums = sums[:n_slot].reshape(max_pillars, z_ext, f)
-    counts = counts[:n_slot].reshape(max_pillars, z_ext)
-    occ = (counts > 0) & pmask[:, None]
-    feats = torch.where(occ[..., None],
-                        sums / counts.clamp(min=1.0)[..., None], 0.0)
+    with span("pillarize.means"):
+        n_slot = max_pillars * z_ext
+        slot = torch.where(ok, prank * z_ext + skey % z_ext, n_slot)
+        sums = torch.zeros(n_slot + 1, f, dtype=torch.float32, device=dev)
+        sums.index_add_(0, slot, spts)
+        counts = torch.zeros(n_slot + 1, dtype=torch.float32, device=dev)
+        counts.index_add_(0, slot,
+                          torch.ones_like(slot, dtype=torch.float32))
+        sums = sums[:n_slot].reshape(max_pillars, z_ext, f)
+        counts = counts[:n_slot].reshape(max_pillars, z_ext)
+        occ = (counts > 0) & pmask[:, None]
+        feats = torch.where(occ[..., None],
+                            sums / counts.clamp(min=1.0)[..., None], 0.0)
     if not return_stats:
         return pcoords, pmask, occ, feats
     pil_raw = torch.where(in_range,

@@ -9,7 +9,9 @@
 
 Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
 flagship `cmt_fusion_coop_tumtraf` by default), runs one frame to warm up,
-then traces 3 frames. `--encoder gather` takes the LiDAR preset with the
+then traces 3 frames. The stages are the program's own spans
+(utils/profiling.py `span`), which the trace holds beside the device ops.
+`--encoder gather` takes the LiDAR preset with the
 gather sparse encoder (main_path.py `GATHER_PATH`), whose stages add
 `voxelize` (voxelize + VFE), `sparse maps` (every neighbour map and active
 set of the encoder, kernel 9) and `sparse convs` (its gather convs and the
@@ -17,8 +19,8 @@ densify); its `pillar encoder` span keeps what these leave. On the pillar
 encoder, `pillar maps` holds its calls of `pillar_neighbor_map` and
 `pillar_conv_neighbor_map` (kernel 9; the downsample grids stay in `pillar
 encoder`). `--root` traces the package of another checkout (e.g. the
-parent commit unpacked with `git archive` into `build/`) with this
-module's spans and counts, so two trees are read alike. With `--train`
+parent commit unpacked with `git archive` into `build/`), read by this
+module's counts from that package's own spans. With `--train`
 it builds the full-width train step
 (main_path.py `build_train_path`), runs one step to warm up and traces one
 step: the frame is then the step, and the stages add `forward` (what no
@@ -72,73 +74,20 @@ from cmtcoop_tpu_torch import main_path
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-# host span name -> (module attribute, method), per agent; an extractor
-# without the module (a LiDAR-only or camera-only model) has no such span
-AGENT_STAGES = {"image backbone": ("img_backbone", "forward"),
-                "image neck": ("img_neck", "forward"),
-                "pillarize": ("", "pillarize"),
-                "pillar encoder": ("pts_middle_encoder", "forward"),
-                "SECOND": ("pts_backbone", "forward"),
-                "FPN": ("pts_neck", "forward")}
-# host span name -> the head's methods
-HEAD_STAGES = {"head memory": ("build_memory",),
-               "rv pe": ("_rv_pe", "_rv_query_embed"),
-               "decoder": ("run_decoder",), "task heads": ("run_task_heads",)}
-# the pillar encoder's neighbour-map builders (ops/pillars.py), each call
-# in a span of this name
+# the program's stage spans (utils/profiling.py `span`): per agent (an
+# extractor without the module, a LiDAR-only or camera-only model, has no
+# such span), then the pillar encoder's neighbour-map builders
+# (ops/pillars.py), then the head's
+AGENT_STAGES = ("image backbone", "image neck", "pillarize", "pillar encoder",
+                "SECOND", "FPN")
 PILLAR_MAPS = "pillar maps"
-PILLAR_MAP_FNS = ("pillar_neighbor_map", "pillar_conv_neighbor_map")
-STAGES = tuple(AGENT_STAGES) + (PILLAR_MAPS,) + tuple(HEAD_STAGES)
-# the gather encoder's own spans (models/sparse_encoder.py), per agent
-GATHER_STAGES = {"voxelize": ("", "voxel_features"),
-                 "sparse maps": ("pts_middle_encoder", "maps"),
-                 "sparse convs": ("pts_middle_encoder", "convs")}
+HEAD_STAGES = ("head memory", "rv pe", "decoder", "task heads")
+STAGES = AGENT_STAGES + (PILLAR_MAPS,) + HEAD_STAGES
+# the gather encoder's own spans (models/detector.py, sparse_encoder.py)
+GATHER_STAGES = ("voxelize", "sparse maps", "sparse convs")
 # the train step's own spans (train/train_step.py `make_train_step`)
 TRAIN_STAGES = ("forward", "loss + Hungarian", "backward", "optimizer")
 N_FRAMES = 3
-
-
-def _spanned(name, fn):
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-def _map_spanned(fn, ops):
-    """`fn` with the pillar map builders of `ops` (the `ops.pillars` module
-    the encoder calls) in `PILLAR_MAPS` spans while it runs."""
-    def wrapped(*args, **kwargs):
-        saved = {n: getattr(ops, n) for n in PILLAR_MAP_FNS}
-        for n, f in saved.items():
-            setattr(ops, n, _spanned(PILLAR_MAPS, f))
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            for n, f in saved.items():
-                setattr(ops, n, f)
-    return wrapped
-
-
-def instrument(model) -> None:
-    """Wrap each stage's entry of a coop detector in a named host span, and
-    the pillar encoder's map builders in `PILLAR_MAPS` spans during its
-    forward. Only instance attributes change for good; what the model
-    computes does not."""
-    for agent in model.agents:
-        ext = getattr(model, f"{agent}_model")
-        for name, (sub, method) in {**AGENT_STAGES, **GATHER_STAGES}.items():
-            obj = getattr(ext, sub, None) if sub else ext
-            if obj is not None and hasattr(obj, method):
-                setattr(obj, method, _spanned(name, getattr(obj, method)))
-        enc = getattr(ext, "pts_middle_encoder", None)
-        ops = getattr(sys.modules[type(enc).__module__], "pu", None)
-        if ops is not None and all(hasattr(ops, n) for n in PILLAR_MAP_FNS):
-            enc.forward = _map_spanned(enc.forward, ops)
-    head = model.pts_bbox_head
-    for name, methods in HEAD_STAGES.items():
-        for method in methods:
-            setattr(head, method, _spanned(name, getattr(head, method)))
 
 
 def _union_ms(intervals) -> float:
@@ -278,9 +227,7 @@ def main(argv=None) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     if args.train:
-        model, batch, _, step = mp.build_train_path(
-            dev, span=torch.profiler.record_function)
-        instrument(model)
+        _, batch, _, step = mp.build_train_path(dev)
         n, stage_names = 1, STAGES + TRAIN_STAGES
         step(batch)  # warm-up: the build, first launches
         torch.cuda.synchronize()
@@ -295,8 +242,7 @@ def main(argv=None) -> dict:
                 torch.cuda.synchronize()
     else:
         model, batch = mp.build_main_path(dev, path)
-        instrument(model)
-        n, stage_names = N_FRAMES, STAGES + tuple(GATHER_STAGES)
+        n, stage_names = N_FRAMES, STAGES + GATHER_STAGES
         with torch.inference_mode():
             mp.frame(model, batch)  # warm-up: the build, launches
             t0 = time.perf_counter()

@@ -28,6 +28,7 @@ from cmtcoop_tpu_torch.core.coder import decode_boxes
 from cmtcoop_tpu_torch.data import formats
 from cmtcoop_tpu_torch.data.loader import build_test_loader
 from cmtcoop_tpu_torch.models.build import build_detector
+from cmtcoop_tpu_torch.utils.profiling import count, span
 
 CODES = ("center", "height", "dim", "rot", "vel")
 
@@ -47,11 +48,25 @@ def make_eval_forward(model: torch.nn.Module):
     return forward
 
 
+@span("eval.to_device")
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                              torch.Tensor]:
-    """A numpy batch -> tensors on `device` (non-blocking copies)."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
-            for k, v in batch.items()}
+    """A numpy batch -> tensors on `device` (non-blocking copies). Counts
+    the bytes copied from the host to another device (`h2d.bytes`), and
+    those of them from pageable memory (`h2d.pageable_bytes`)."""
+    device = torch.device(device)
+    out, nbytes, pageable = {}, 0, 0
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if t.device.type == "cpu" and device.type != "cpu":
+            n = t.numel() * t.element_size()
+            nbytes += n
+            if not t.is_pinned():
+                pageable += n
+        out[k] = t.to(device, non_blocking=True)
+    count("h2d.bytes", nbytes)
+    count("h2d.pageable_bytes", pageable)
+    return out
 
 
 def run_eval(model: torch.nn.Module, ds, preset, batch_size: int = 1,

@@ -10,14 +10,14 @@ step into its key: a step is reproducible from its number alone.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from cmtcoop_tpu_torch.models.cmt_loss import cmt_loss
 from cmtcoop_tpu_torch.train.optim import AdamW
+from cmtcoop_tpu_torch.utils.profiling import span
 
 
 class StepGenerators(NamedTuple):
@@ -34,13 +34,10 @@ def step_generators(seed: int, step: int) -> StepGenerators:
 
 
 def make_train_step(model: torch.nn.Module, optimizer: AdamW, tasks,
-                    base_seed: int = 0,
-                    span: Optional[Callable[[str], object]] = None):
+                    base_seed: int = 0):
     """Returns step(batch) -> metrics (device scalars). The model must be in
-    train mode. `span(name)`, a context manager factory (e.g.
-    `torch.profiler.record_function`), wraps the stages `forward`,
-    `loss + Hungarian`, `backward` and `optimizer`."""
-    span = span or (lambda name: contextlib.nullcontext())
+    train mode. The stages run in the spans `forward`, `loss + Hungarian`,
+    `backward` and `optimizer` (utils/profiling.py)."""
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         rngs = step_generators(base_seed, optimizer.count)

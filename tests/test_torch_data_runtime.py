@@ -169,7 +169,7 @@ def test_tb_writer_reads_back_as_the_jax_writer(tmp_path):
 
 def test_profiling_helpers(tmp_path, monkeypatch):
     """`trace` exports a Chrome trace; `time_fn` refuses to time without a
-    card; `StepTimer` splits data wait from step time."""
+    card."""
     import torch
     from cmtcoop_tpu_torch.utils import profiling
     with profiling.trace(str(tmp_path)):
@@ -179,10 +179,3 @@ def test_profiling_helpers(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         profiling.time_fn(lambda: torch.ones(1))
-    clock = iter([0.0, 1.0, 4.0, 5.0, 8.0])
-    monkeypatch.setattr(profiling.time, "time", lambda: next(clock))
-    timer = profiling.StepTimer(window=1)
-    for _ in range(2):
-        timer.data_ready()
-        timer.step_done()
-    assert timer.sec_per_step == 3.0 and timer.data_fraction == 0.25

@@ -18,6 +18,10 @@ import pytest
 import torch
 
 from cmtcoop_tpu_torch import _build, main_path, profile_path
+from cmtcoop_tpu_torch.core.coder import decode_boxes
+from cmtcoop_tpu_torch.data.formats import decoded_to_eval_boxes
+from cmtcoop_tpu_torch.train.eval_hook import make_eval_forward, to_device
+from cmtcoop_tpu_torch.utils import profiling
 from cmtcoop_tpu_torch.configs.presets import (SMALL_COOP_EXTRACTOR,
                                                SMALL_COOP_HEAD,
                                                SMALL_COOP_PRESET,
@@ -383,20 +387,32 @@ def test_profile_summary_sums_kernel_families():
         "at::native::f"
 
 
+def _serve(model, host):
+    """The per-batch body of `run_eval` on one host batch: boxes, and the
+    forward's outputs."""
+    logits, codes = make_eval_forward(model)(to_device(host, "cpu"))
+    dec = decode_boxes([lg[0] for lg in logits], [c[0] for c in codes])
+    return decoded_to_eval_boxes(dec, ("car",) * 10, 0), (logits, codes)
+
+
 def test_profile_spans_leave_the_model_unchanged():
-    model = fusion_slice_model()
+    """The program's own spans (no wrapping) sit in a profiler's trace:
+    every stage of the fusion detector, the eval entry's and pillarize's;
+    the answers with the spans recording are those without."""
+    model = fusion_slice_model().eval()
     random_init_(model, torch.Generator().manual_seed(2))
-    batch = {k: torch.from_numpy(v) for k, v in small_fusion_batch().items()}
-    with torch.inference_mode():
-        ref, _ = model(batch)
-        profile_path.instrument(model)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            got, _ = model(batch)
+    host = small_fusion_batch()
+    ref_boxes, ref = _serve(model, host)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got_boxes, got = _serve(model, host)
     names = {e.key for e in prof.key_averages()}
     assert set(profile_path.STAGES) <= names
+    assert {"eval.to_device", "eval.decode", "eval.boxes", "eval.readback",
+            "pillarize.sort", "pillarize.slots", "pillarize.means"} <= names
+    assert got_boxes == ref_boxes
     for o, r in zip(got, ref):
-        for key in r:
+        for key in range(len(r)):
             torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
 
 
@@ -408,7 +424,6 @@ def test_profile_gather_spans_leave_the_model_unchanged():
     batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
     with torch.inference_mode():
         ref, _ = model(batch)
-        profile_path.instrument(model)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             got, _ = model(batch)
@@ -452,23 +467,23 @@ def test_profile_summary_counts_launches_and_syncs_per_stage():
 
 
 def test_profile_pillar_map_spans_leave_the_model_unchanged():
-    """The pillar encoder's map builders get a `pillar maps` span a call
-    during its forward (a subm map a level and a down map between levels,
-    per agent), put back after it, and the spans change nothing."""
+    """The pillar encoder's map builders run in a `pillar maps` span a
+    call (a subm map a level and a down map between levels, per agent),
+    in the profiler's trace and in the traced book, and the spans change
+    nothing."""
     model = slice_model()
     random_init_(model, torch.Generator().manual_seed(2))
     batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
-    builders = (pu.pillar_neighbor_map, pu.pillar_conv_neighbor_map)
     with torch.inference_mode():
         ref, _ = model(batch)
-        profile_path.instrument(model)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             got, _ = model(batch)
     counts = {e.key: e.count for e in prof.key_averages()}
     n_levels = len(model.vehicle_model.pts_middle_encoder.encoder_channels)
     assert counts[profile_path.PILLAR_MAPS] == 2 * (2 * n_levels - 1)
-    assert (pu.pillar_neighbor_map, pu.pillar_conv_neighbor_map) == builders
+    assert profiling.traced_calls(profile_path.PILLAR_MAPS) == \
+        2 * (2 * n_levels - 1)
     for o, r in zip(got, ref):
         for key in r:
             torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
