@@ -1183,9 +1183,17 @@ def gather_vs_pillar(gather, pillar, batch):
 
 def run_path(preset, model, batch):
     """Phase 4 on one main path: warm-up, N_FRAMES timed frames, the
-    checks of the module docstring. Returns the launch counts and the
+    checks of the module docstring. The warm-up frame runs eager (a new
+    graph key) and its BEV maps, CPFPN outputs and decoder outputs are
+    checked finite; the second warm-up frame captures the path's CUDA
+    graphs where it has them (every path but the gather one), which the
+    timed frames replay. Each timed frame's task outputs and decoded scores
+    must match the eager frame's on the same batch, so a NaN that a replay
+    makes before `nan_to_num` shows there. A replayed launch is counted from
+    its capture (models/graphs.py). Returns the launch counts and the
     launches per (kernel, shape) where a wrapper records its shape."""
     from cmtcoop_tpu_torch import _build, main_path
+    from cmtcoop_tpu_torch.utils import profiling
     head = model.pts_bbox_head
     finite, memory_len = [], []
 
@@ -1195,44 +1203,66 @@ def run_path(preset, model, batch):
             finite.append((name, all(torch.isfinite(t).all() for t in outs)))
         return hook
 
-    hooks = [head.transformer.decoder.register_forward_hook(
-        check_finite("decoder"))]
+    hooks = []
     for a in model.agents:
         ext = getattr(model, a + "_model")
         hooks.append(ext.pts_neck.register_forward_hook(check_finite("bev")))
         if ext.use_camera:
             hooks.append(ext.img_neck.register_forward_hook(
                 check_finite("cpfpn")))
-    build_memory = head.build_memory
+    build_memory, run_decoder = head.build_memory, head.run_decoder
 
-    def recording_build_memory(agent):
-        mem, pos = build_memory(agent)
+    def recording_build_memory(agent, *args, **kwargs):
+        mem, pos = build_memory(agent, *args, **kwargs)
         memory_len.append(mem.shape[1])
         return mem, pos
 
+    def checking_run_decoder(*args, **kwargs):
+        out = run_decoder(*args, **kwargs)
+        finite.append(("decoder", torch.isfinite(out).all()))
+        return out
+
     head.build_memory = recording_build_memory
+    head.run_decoder = checking_run_decoder
     with torch.inference_mode():
-        main_path.frame(model, batch)  # warm-up (first-launch costs)
-        finite.clear()
+        # warm-up (first-launch costs), eager: the reference of the frames
+        ref_outs, ref_dec = main_path.frame(model, batch)
+        for h in hooks:  # a hook's check would synchronise in a capture
+            h.remove()
+        del head.run_decoder
+        main_path.frame(model, batch)  # captures the graphs
         memory_len.clear()
         _build.reset_counts()
-        times = []
+        replayed = profiling.total("graph.replayed")
+        times, served = [], []
         for _ in range(N_FRAMES):
             t0 = time.perf_counter()
             task_outs, dec = main_path.frame(model, batch)
             times.append((time.perf_counter() - t0) * 1e3)
+            served.append((task_outs, dec))
         launches = dict(_build.launch_counts)
         shapes = dict(_build.launch_shapes)
-    for h in hooks:
-        h.remove()
+        replayed = profiling.total("graph.replayed") - replayed
     del head.build_memory
     bad = [name for name, ok in finite if not bool(ok)]
-    # per frame and agent: the BEV map, the CPFPN outputs with the camera
-    # branch, the decoder pass
+    # per agent: the BEV map, the CPFPN outputs with the camera branch,
+    # the decoder pass
     per_agent = 3 if model.vehicle_model.use_camera else 2
-    if bad or len(finite) != per_agent * len(model.agents) * N_FRAMES:
+    if bad or len(finite) != per_agent * len(model.agents):
         raise AssertionError(f"{preset}: non-finite outputs before "
                              f"nan_to_num: {bad}")
+    if (replayed > 0) == (preset == main_path.GATHER_PATH):
+        raise AssertionError(f"{preset}: {replayed} graph replays in "
+                             f"{N_FRAMES} frames")
+    gap = 0.0  # the timed frames against the eager frame, NaN never close
+    for outs, d in served:
+        pairs = [(o[k], r[k]) for o, r in zip(outs, ref_outs) for k in r]
+        for got, want in pairs + [(d.scores, ref_dec.scores)]:
+            if not torch.allclose(got.float(), want.float(), rtol=1e-2,
+                                  atol=1e-2):
+                raise AssertionError(f"{preset}: a timed frame's outputs "
+                                     "differ from the eager frame's")
+            gap = max(gap, float((got.float() - want.float()).abs().max()))
     for k, v in task_outs[0].items():
         if not bool(torch.isfinite(v).all()) or v.shape[:3] != (6, 1, 900):
             raise AssertionError(f"{preset}: task output {k} "
@@ -1250,7 +1280,9 @@ def run_path(preset, model, batch):
                              f"expected {want}")
     log(f"main path {preset}: {N_FRAMES} frames, ms/frame "
         f"{' '.join(f'{t:.1f}' for t in times)} (mean "
-        f"{sum(times) / len(times):.1f}), {int(dec.valid.sum())}/300 valid "
+        f"{sum(times) / len(times):.1f}), {replayed} graph replays, "
+        f"largest gap to the eager frame {gap:.3g}, "
+        f"{int(dec.valid.sum())}/300 valid "
         f"slots, memory tokens per agent {memory_len[:len(model.agents)]}, "
         f"launches {launches}")
     path_kernels = main_path.PATH_KERNELS[preset]

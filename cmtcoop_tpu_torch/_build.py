@@ -11,7 +11,8 @@ kernel, and nowhere else, so a run can show which kernels its path reached.
 A wrapper may also name the shape it launched at (the pillar convs, the
 3x3 conv, the OSA aggregate, the flash attention kernels, (Nq, Nk,
 heads, Dh), and the neighbour map, (n_in, V_out, kernel, stride), do):
-`launch_shapes` then counts the launches per (kernel, shape).
+`launch_shapes` then counts the launches per (kernel, shape). A launch
+that a CUDA graph captures is counted each time the graph replays.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import subprocess
 import tempfile
 from collections import Counter
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -66,6 +67,8 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# the open CUDA graph captures' taps of launches (models/graphs.py)
+taps: List[list] = []
 
 
 def reset_counts() -> None:
@@ -75,6 +78,9 @@ def reset_counts() -> None:
 
 
 def count(name: str, shape: Optional[tuple] = None) -> None:
+    if taps:  # a CUDA graph captures the launch: its owner counts replays
+        taps[-1].append((name, shape))
+        return
     launch_counts[name] += 1
     if shape is not None:
         launch_shapes[name, shape] += 1

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from cmtcoop_tpu_torch.utils.constants import constant
+
 
 def normalize_bbox(boxes: torch.Tensor) -> torch.Tensor:
     """box9/box7 -> 10/8-dim regression code: centers pass through, sizes
@@ -39,8 +41,8 @@ def gravity_to_bottom_center(boxes: torch.Tensor) -> torch.Tensor:
 
 def normalize_01(xyz: torch.Tensor, pc_range) -> torch.Tensor:
     """Map metric (x, y, z) into [0, 1]^3 using the point-cloud range."""
-    lo = torch.tensor(pc_range[:3], dtype=xyz.dtype, device=xyz.device)
-    hi = torch.tensor(pc_range[3:], dtype=xyz.dtype, device=xyz.device)
+    lo = constant(pc_range[:3], xyz.dtype, xyz.device)
+    hi = constant(pc_range[3:], xyz.dtype, xyz.device)
     return (xyz - lo) / (hi - lo)
 
 

@@ -28,9 +28,11 @@ import torch.nn as nn
 from cmtcoop_tpu_torch.core.boxes import inverse_sigmoid, normalize_01
 from cmtcoop_tpu_torch.core.pos_embed import (bev_pos2embed_grid, depth_bins,
                                               frustum_coords, pos2embed)
+from cmtcoop_tpu_torch.models.graphs import EAGER, Frame
 from cmtcoop_tpu_torch.models.layers import MLP, ConvBNReLU
 from cmtcoop_tpu_torch.models.petr_decoder import PETRTransformerDecoder
 from cmtcoop_tpu_torch.ops.attention import NEG_INF
+from cmtcoop_tpu_torch.utils.constants import constant
 from cmtcoop_tpu_torch.utils.profiling import span
 
 COMMON_HEADS: Tuple[Tuple[str, int], ...] = (
@@ -213,44 +215,60 @@ class CmtHead(nn.Module):
                                   groups * g)
 
     def forward(self, agents: Sequence[AgentInputs], gt_boxes=None,
-                gt_labels=None, gt_mask=None, rngs=None):
+                gt_labels=None, gt_mask=None, rngs=None,
+                frame: Frame = EAGER):
         """One `AgentInputs` per agent. Returns (task_outs, dn_info): per task
         a dict of (L, B, Nq, ·) outputs (center and height in metres), plus
         the `dn_` outputs and the DNInfo in train mode with ground truth.
         `rngs` (`.dn`, `.dropout`: CPU generators) gives the DN noise and
-        the decoder's dropout seeds in train mode."""
+        the decoder's dropout seeds in train mode. Every stage's body is a
+        segment of `frame` (models/graphs.py); between them only kernel 4's
+        `shared_conv` and the decoder's kernel-3 calls run on the host."""
         first = agents[0]
         batch = (first.bev_feat if first.bev_feat is not None
                  else first.img_feats).shape[0]
-        ref = self.reference_points.weight
         dn_info = None
         if self.training and gt_boxes is not None:
+            ref = self.reference_points.weight
             b, g = gt_labels.shape
             rand = torch.rand((b, self.dn_groups, g, 3),
                               generator=rngs.dn if rngs else None)
             padded_ref, dn_info = self.prepare_for_dn(
                 ref, gt_boxes.float(), gt_labels, gt_mask.bool(),
                 (rand * 2.0 - 1.0).to(ref.device))
+            queries = self.query_embed(padded_ref)
         else:
-            padded_ref = ref[None].expand(batch, *ref.shape)
-        ref01 = torch.sigmoid(inverse_sigmoid(padded_ref))
-        bev_query_pos = self.bev_embedding(
-            pos2embed(ref01, self.hidden_dim).to(self.compute_dtype))
+            queries = self.eval_queries(batch, frame)
+        padded_ref, ref01, bev_query_pos = queries
         generator = rngs.dropout if rngs else None
         outs_decs = []
         for agent in agents:
-            memory, memory_pos = self.build_memory(agent)
+            memory, memory_pos = self.build_memory(agent, frame)
             query_pos = bev_query_pos
             if self.with_rv:
-                query_pos = query_pos + self._rv_query_embed(
-                    ref01, agent.lidar2img, agent.img2lidar, agent.pad_hw)
+                query_pos = self._rv_query_embed(
+                    query_pos, ref01, agent.lidar2img, agent.img2lidar,
+                    agent.pad_hw, frame)
             outs_decs.append(self.run_decoder(memory, memory_pos, query_pos,
-                                              generator))
-        if len(outs_decs) == 1:
-            outs_dec = outs_decs[0]
-        else:  # coop max fusion; amax splits the gradient among ties
-            outs_dec = torch.stack(outs_decs, dim=0).amax(dim=0)
-        return self.run_task_heads(outs_dec, padded_ref, dn_info), dn_info
+                                              generator, frame))
+        return self.run_task_heads(outs_decs, padded_ref, dn_info,
+                                   frame), dn_info
+
+    def query_embed(self, padded_ref):
+        """(B, N, 3) reference points in [0, 1] -> (padded_ref, ref01, the
+        queries' BEV position encoding (B, N, hidden))."""
+        ref01 = torch.sigmoid(inverse_sigmoid(padded_ref))
+        return padded_ref, ref01, self.bev_embedding(
+            pos2embed(ref01, self.hidden_dim).to(self.compute_dtype))
+
+    @span("head memory")
+    def eval_queries(self, batch: int, frame: Frame = EAGER):
+        """`query_embed` of the learned reference points (no DN queries)."""
+        return frame(self._eval_queries, batch)
+
+    def _eval_queries(self, batch: int):
+        ref = self.reference_points.weight
+        return self.query_embed(ref[None].expand(batch, *ref.shape))
 
     @span("rv pe")
     def _rv_pe(self, feat_hw, pad_hw, img2lidar):
@@ -271,8 +289,8 @@ class CmtHead(nn.Module):
         gradient), in_img (B, V, N) true where
         0 <= u < pad_w, 0 <= v < pad_h and z > 0."""
         pad_h, pad_w = pad_hw
-        lo = ref01.new_tensor(self.pc_range[:3])
-        hi = ref01.new_tensor(self.pc_range[3:])
+        lo = constant(self.pc_range[:3], ref01.dtype, ref01.device)
+        hi = constant(self.pc_range[3:], ref01.dtype, ref01.device)
         pts = ref01 * (hi - lo) + lo
         pts_h = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
         proj = torch.einsum("bnd,bvcd->bvnc", pts_h, lidar2img.float())
@@ -287,10 +305,17 @@ class CmtHead(nn.Module):
         return uvz, in_img
 
     @span("rv pe")
-    def _rv_query_embed(self, ref01, lidar2img, img2lidar, pad_hw):
-        """Each query projected into every view, back-projected along the
-        depth bins, embedded, masked to the views it lands in and summed
-        over the views: (B, N, hidden)."""
+    def _rv_query_embed(self, query_pos, ref01, lidar2img, img2lidar,
+                        pad_hw, frame: Frame = EAGER):
+        """`query_pos` plus the queries' ray embedding, a segment of
+        `frame`."""
+        return frame(self._rv_query_pos, query_pos, ref01, lidar2img,
+                     img2lidar, pad_hw)
+
+    def _rv_query_pos(self, query_pos, ref01, lidar2img, img2lidar, pad_hw):
+        """`query_pos` plus each query projected into every view,
+        back-projected along the depth bins, embedded, masked to the views
+        it lands in and summed over the views: (B, N, hidden)."""
         uvz, in_img = self.project_queries(ref01, lidar2img, pad_hw)
         dbins = depth_bins(self.depth_num, self.pc_range[3], uvz.device)
         ray = uvz[..., None, :3] * dbins[:, None]
@@ -299,15 +324,23 @@ class CmtHead(nn.Module):
         back01 = normalize_01(back[..., :3], self.pc_range)
         flat = back01.reshape(*back01.shape[:-2], self.depth_num * 3)
         emb = self.rv_embedding(flat.to(self.compute_dtype))
-        return (emb * in_img[..., None].to(emb.dtype)).sum(dim=1)
+        return query_pos + (emb * in_img[..., None].to(emb.dtype)).sum(dim=1)
 
     @span("head memory")
-    def build_memory(self, agent: AgentInputs):
+    def build_memory(self, agent: AgentInputs, frame: Frame = EAGER):
         """Token memory (B, T, C) and its PE: the BEV tokens in row-major
-        (y, x) order, then the image tokens in (view, h, w) order."""
-        mem, pos = [], []
+        (y, x) order, then the image tokens in (view, h, w) order. The BEV
+        tokens' `shared_conv` (kernel 4) runs on the host, where the
+        benchmark reads its calls; the rest is a segment of `frame`."""
+        x = None
         if self.with_bev:
             x = self.shared_conv(agent.bev_feat.to(self.compute_dtype))
+        return frame(self._memory, x, agent.img_feats, agent.img2lidar,
+                     agent.pad_hw)
+
+    def _memory(self, x, img_feats, img2lidar, pad_hw):
+        mem, pos = [], []
+        if self.with_bev:
             b, hb, wb, c = x.shape
             mem.append(x.reshape(b, hb * wb, c))
             table = bev_pos2embed_grid((self.grid_size[1], self.grid_size[0]),
@@ -316,33 +349,48 @@ class CmtHead(nn.Module):
             bev_pos = self.bev_embedding(table.to(self.compute_dtype))
             pos.append(bev_pos[None].expand(b, *bev_pos.shape))
         if self.with_rv:
-            b, v, hf, wf, c = agent.img_feats.shape
-            mem.append(agent.img_feats.reshape(b, v * hf * wf, c).to(
+            b, v, hf, wf, c = img_feats.shape
+            mem.append(img_feats.reshape(b, v * hf * wf, c).to(
                 self.compute_dtype))
-            rv_pos = self._rv_pe((hf, wf), agent.pad_hw, agent.img2lidar)
+            rv_pos = self._rv_pe((hf, wf), pad_hw, img2lidar)
             pos.append(rv_pos.reshape(b, v * hf * wf, self.hidden_dim))
         return torch.cat(mem, dim=1), torch.cat(pos, dim=1)
 
     @span("decoder")
-    def run_decoder(self, memory, memory_pos, query_pos, generator=None):
-        """The decoder over one agent's memory; with DN queries (train) the
+    def run_decoder(self, memory, memory_pos, query_pos, generator=None,
+                    frame: Frame = EAGER):
+        """The decoder over one agent's memory -> its (L, B, Nq, C) outputs;
+        in eval as segments of `frame`. With DN queries (train) the
         self-attention takes `dn_attn_bias`, its slot count following the
         queries' (the batch's GT slots times `dn_groups`)."""
+        decoder = self.transformer.decoder
+        if not self.training:
+            return decoder.eval_forward(memory, query_pos, memory_pos, frame)
         nq = query_pos.shape[1]
         bias = None
-        if self.training and nq > self.num_query:
+        if nq > self.num_query:
             single_pad = (nq - self.num_query) // self.dn_groups
             bias = dn_attn_bias(self.num_query, single_pad, self.dn_groups,
                                 query_pos.device)[None, None]
         target = torch.zeros_like(query_pos)
-        outs_dec = self.transformer.decoder(
-            target, memory, query_pos, memory_pos, self_attn_bias=bias,
-            generator=generator)
-        return torch.nan_to_num(outs_dec)
+        return decoder(target, memory, query_pos, memory_pos,
+                       self_attn_bias=bias, generator=generator)
 
     @span("task heads")
-    def run_task_heads(self, outs_dec, padded_ref,
-                       dn_info: Optional[DNInfo] = None) -> List[Dict]:
+    def run_task_heads(self, outs_decs, padded_ref,
+                       dn_info: Optional[DNInfo] = None,
+                       frame: Frame = EAGER) -> List[Dict]:
+        """The agents' decoder outputs (`nan_to_num`, then with several
+        agents their element-wise max) through the task heads; a segment of
+        `frame`."""
+        return frame(self._task_heads, outs_decs, padded_ref, dn_info)
+
+    def _task_heads(self, outs_decs, padded_ref, dn_info) -> List[Dict]:
+        outs_decs = [torch.nan_to_num(o) for o in outs_decs]
+        if len(outs_decs) == 1:
+            outs_dec = outs_decs[0]
+        else:  # coop max fusion; amax splits the gradient among ties
+            outs_dec = torch.stack(outs_decs, dim=0).amax(dim=0)
         reference = inverse_sigmoid(padded_ref)
         lo = self.pc_range
         task_outs = []

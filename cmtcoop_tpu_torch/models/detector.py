@@ -8,7 +8,11 @@ gravity-centred, `gt_labels` (B, G) int, `gt_mask` (B, G) bool, shared by
 the agents. In train mode (`model.train()`) the images are grid-masked
 before the backbone and the ground truth goes to the head (DN); `rngs`
 (CPU generators `.dn`, `.dropout`, `.gridmask`; see train/train_step.py)
-gives the step's random draws.
+gives the step's random draws. In eval mode on the card with autograd off,
+each forward runs its LiDAR branches and its head as segments that CUDA
+graphs capture and replay (models/graphs.py; `graphable` says when); the
+camera branch, the head's kernel-4 calls and the decoder's kernel-3 calls
+stay on the host.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from cmtcoop_tpu_torch.models.cmt_head import AgentInputs, CmtHead
+from cmtcoop_tpu_torch.models.graphs import EAGER, Frame, FrameGraphs
 from cmtcoop_tpu_torch.models.grid_mask import grid_mask, grid_mask_draws
 from cmtcoop_tpu_torch.models.pillar_encoder import PillarSparseEncoder
 from cmtcoop_tpu_torch.models.second import SECOND, SECONDFPN
@@ -114,8 +119,12 @@ class FeatureExtractor(nn.Module):
             self.pts_neck = SECONDFPN(second_channels, fpn_channels)
 
     @span("pillarize")
-    def pillarize(self, points, points_mask, return_stats: bool = False):
+    def pillarize(self, points, points_mask, return_stats: bool = False,
+                  frame: Frame = EAGER):
         """One sample's cloud -> pillars, with this extractor's settings."""
+        return frame(self._pillarize, points, points_mask, return_stats)
+
+    def _pillarize(self, points, points_mask, return_stats):
         return pillarize(points, points_mask, voxel_size=self.voxel_size,
                          pc_range=self.pc_range, grid_size=self.grid_size,
                          max_points=self.max_points_per_voxel,
@@ -137,23 +146,31 @@ class FeatureExtractor(nn.Module):
         vox = self.voxelize(points, points_mask)
         return hard_simple_vfe(vox), vox
 
-    def encode(self, points, points_mask) -> torch.Tensor:
+    def encode(self, points, points_mask,
+               frame: Frame = EAGER) -> torch.Tensor:
         """One sample's cloud -> its dense BEV map, through the encoder."""
         if self.encoder_impl == "pillar":
-            args = self.pillarize(points, points_mask)
+            args = self.pillarize(points, points_mask, frame=frame)
         else:
             feats, vox = self.voxel_features(points, points_mask)
             args = (feats, vox.coords, vox.mask)
         with span("pillar encoder"):
-            return self.pts_middle_encoder(*args, dtype=self.compute_dtype)
+            return frame(self.pts_middle_encoder, *args,
+                         dtype=self.compute_dtype)
 
-    def extract_pts_feat(self, points, points_mask) -> torch.Tensor:
-        bev = torch.stack([self.encode(p, m)
-                           for p, m in zip(points, points_mask)])
+    def extract_pts_feat(self, points, points_mask,
+                         frame: Frame = EAGER) -> torch.Tensor:
+        """(B, N, 5) clouds -> the (B, H/8, W/8, 512) BEV map: per sample
+        pillarize and encode, then SECOND (the samples stacked in its
+        segment) and SECONDFPN, each a segment of `frame`."""
+        bevs = [self.encode(p, m, frame) for p, m in zip(points, points_mask)]
         with span("SECOND"):
-            x = self.pts_backbone(bev)
+            x = frame(self._second, bevs)
         with span("FPN"):
-            return self.pts_neck(x)
+            return frame(self.pts_neck, x)
+
+    def _second(self, bevs):
+        return self.pts_backbone(torch.stack(bevs))
 
     def extract_img_feat(self, imgs, rngs=None) -> torch.Tensor:
         """(B, V, H, W, 3) images -> (B, V, H/16, W/16, C) CPFPN level 0;
@@ -170,11 +187,14 @@ class FeatureExtractor(nn.Module):
         return f0.reshape(b, v, *f0.shape[1:])
 
     def extract(self, batch: Dict[str, torch.Tensor], prefix: str = "",
-                rngs=None) -> AgentInputs:
+                rngs=None, frame: Frame = EAGER) -> AgentInputs:
+        """One agent's head inputs; the LiDAR branch as `frame`'s segments,
+        the camera branch on the host."""
         bev_feat = img_feats = pad_hw = None
         if self.use_lidar:
             bev_feat = self.extract_pts_feat(batch[prefix + "points"],
-                                             batch[prefix + "points_mask"])
+                                             batch[prefix + "points_mask"],
+                                             frame)
         if self.use_camera:
             imgs = batch[prefix + "imgs"]
             pad_hw = (imgs.shape[2], imgs.shape[3])
@@ -185,6 +205,29 @@ class FeatureExtractor(nn.Module):
 
     def forward(self, batch, prefix: str = "", rngs=None):
         return self.extract(batch, prefix, rngs)
+
+
+def graphable(model: nn.Module,
+              extractors: Sequence[FeatureExtractor]) -> bool:
+    """Whether a forward of `model` may run its segments as CUDA graphs, as
+    far as the model tells: eval mode, autograd off and every LiDAR branch
+    on the pillar encoder (the batch must also be on the card)."""
+    return (not model.training and not torch.is_grad_enabled()
+            and all(isinstance(e.pts_middle_encoder, PillarSparseEncoder)
+                    for e in extractors if e.use_lidar))
+
+
+def _frame(model: nn.Module, extractors: Sequence[FeatureExtractor],
+           head: CmtHead, batch: Dict[str, torch.Tensor]) -> Frame:
+    """The segment runner of one forward of `model`: CUDA graphs of the
+    LiDAR branches and the head where `graphable` and the batch is on the
+    card; else eager."""
+    tensors = [v for v in batch.values() if isinstance(v, torch.Tensor)]
+    on_card = bool(tensors) and all(t.is_cuda for t in tensors)
+    modules = [m for e in extractors if e.use_lidar
+               for m in (e.pts_middle_encoder, e.pts_backbone, e.pts_neck)]
+    return model.graphs.frame(batch, modules + [head],
+                              on_card and graphable(model, extractors))
 
 
 def _gt(batch):
@@ -216,10 +259,13 @@ class CmtDetector(FeatureExtractor):
                          **ek)
         self.pts_bbox_head = _head(use_lidar, use_camera, ek,
                                    head_kwargs or {}, compute_dtype)
+        self.graphs = FrameGraphs()
 
     def forward(self, batch, rngs=None):
-        return self.pts_bbox_head([self.extract(batch, "", rngs)],
-                                  rngs=rngs, **_gt(batch))
+        frame = _frame(self, [self], self.pts_bbox_head, batch)
+        return frame.finish(self.pts_bbox_head(
+            [self.extract(batch, "", rngs, frame)], rngs=rngs, frame=frame,
+            **_gt(batch)))
 
 
 class CmtCoopDetector(nn.Module):
@@ -242,8 +288,12 @@ class CmtCoopDetector(nn.Module):
                 use_lidar, use_camera, compute_dtype=compute_dtype, **ek))
         self.pts_bbox_head = _head(use_lidar, use_camera, ek,
                                    head_kwargs or {}, compute_dtype)
+        self.graphs = FrameGraphs()
 
     def forward(self, batch, rngs=None):
-        return self.pts_bbox_head([
-            getattr(self, f"{a}_model").extract(batch, f"{a}_", rngs)
-            for a in self.agents], rngs=rngs, **_gt(batch))
+        exts = [getattr(self, f"{a}_model") for a in self.agents]
+        frame = _frame(self, exts, self.pts_bbox_head, batch)
+        return frame.finish(self.pts_bbox_head([
+            e.extract(batch, f"{a}_", rngs, frame)
+            for a, e in zip(self.agents, exts)], rngs=rngs, frame=frame,
+            **_gt(batch)))

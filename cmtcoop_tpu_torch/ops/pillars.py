@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from cmtcoop_tpu_torch.ops.lookup_kernel import INT32_MAX, neighbor_map
+from cmtcoop_tpu_torch.utils.constants import constant
 from cmtcoop_tpu_torch.utils.profiling import count, span
 
 
@@ -177,10 +178,10 @@ def pillars_to_dense(grid: PillarGrid, feats: torch.Tensor) -> torch.Tensor:
 def compute_voxel_coords(points, point_mask, voxel_size, pc_range,
                          grid_size):
     """Per-point integer voxel coords (z, y, x) int64 and validity."""
-    vs = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
-    lo = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)
+    vs = constant(voxel_size, points.dtype, points.device)
+    lo = constant(pc_range[:3], points.dtype, points.device)
     gxyz = torch.floor((points[..., :3] - lo) / vs).long()
-    gs = torch.tensor(grid_size, dtype=torch.long, device=points.device)
+    gs = constant(grid_size, torch.long, points.device)
     valid = point_mask & (gxyz >= 0).all(-1) & (gxyz < gs).all(-1)
     return gxyz.flip(-1), valid
 

@@ -8,8 +8,9 @@
     python -m cmtcoop_tpu_torch.profile_path --root build/parent [...]
 
 Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
-flagship `cmt_fusion_coop_tumtraf` by default), runs one frame to warm up,
-then traces 3 frames. The stages are the program's own spans
+flagship `cmt_fusion_coop_tumtraf` by default), runs two frames to warm up
+(a new graph key's eager frame and the frame that captures its CUDA graphs,
+models/graphs.py), then traces 3 frames. The stages are the program's own spans
 (utils/profiling.py `span`), which the trace holds beside the device ops.
 `--encoder gather` takes the LiDAR preset with the
 gather sparse encoder (main_path.py `GATHER_PATH`), whose stages add
@@ -244,7 +245,8 @@ def main(argv=None) -> dict:
         model, batch = mp.build_main_path(dev, path)
         n, stage_names = N_FRAMES, STAGES + GATHER_STAGES
         with torch.inference_mode():
-            mp.frame(model, batch)  # warm-up: the build, launches
+            for _ in range(2):  # warm-up: the build, launches, graphs
+                mp.frame(model, batch)
             t0 = time.perf_counter()
             for _ in range(n):
                 mp.frame(model, batch)

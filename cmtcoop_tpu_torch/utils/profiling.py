@@ -14,7 +14,10 @@ The program's spans and counters, always on:
   running total on every call; a tensor (a device scalar) is only kept,
   and only while a profiler records, so a counter neither synchronises
   nor launches inside a frame. Values from calls made while a profiler
-  records go to the traced book.
+  records go to the traced book. While a CUDA graph captures
+  (`models/graphs.py`), counts go to the capture's tap instead, a tensor
+  as a copy the graph rewrites on each replay, and the graph's owner
+  counts them after each replay.
 
 The traced book holds the latest profiling session: the first span or
 count that finds a profiler recording after one had found none empties
@@ -106,6 +109,8 @@ class Recorder:
         self.ring, self.clock = ring, clock
         self._local = threading.local()
         self._spans: Dict[str, _Span] = {}
+        # the open captures' taps, innermost last: (name, value) lists
+        self.taps: List[list] = []
         self.rings: Dict[str, deque] = defaultdict(
             lambda: deque(maxlen=self.ring))
         self.reset()
@@ -121,6 +126,10 @@ class Recorder:
         self.traced = defaultdict(int)
         self.traced_counts = defaultdict(list)
         self._in_session = True
+
+    def recording(self) -> bool:
+        """Whether a profiler records (a tensor counted now is kept)."""
+        return self._recording()
 
     def _recording(self) -> bool:
         prof = sys.modules.get(_PROFILER)
@@ -138,6 +147,11 @@ class Recorder:
             return self._spans.setdefault(name, _Span(name, self))
 
     def count(self, name: str, value) -> None:
+        if self.taps:
+            self.taps[-1].append((name, value.detach().clone()
+                                  if hasattr(value, "detach") else
+                                  int(value)))
+            return
         if hasattr(value, "detach"):
             if self._recording():
                 self.traced_counts[name].append(value.detach())
@@ -194,6 +208,7 @@ class Recorder:
 RECORDER = Recorder()
 span = RECORDER.span
 count = RECORDER.count
+recording = RECORDER.recording
 host_ms = RECORDER.host_ms
 traced_calls = RECORDER.traced_calls
 traced_values = RECORDER.traced_values
