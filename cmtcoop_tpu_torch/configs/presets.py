@@ -1,11 +1,12 @@
-"""Model presets: the TUMTraf operating points and the tiny smoke preset of
-cmtcoop_tpu/configs/presets.py, copied so the port depends on no module of
-the JAX package. tests/test_torch_weights.py holds every preset here equal
-to its JAX counterpart, field by field.
+"""Model presets: the TUMTraf operating points, the original CMT nuScenes
+presets and the tiny smoke preset of cmtcoop_tpu/configs/presets.py, copied
+so the port depends on no module of the JAX package.
+tests/test_torch_weights.py holds every preset here equal to its JAX
+counterpart, field by field.
 
 Each preset is built from (domain, modality); the reference's mmcv configs
 are projects/configs/CMTCoop_TUMTraf/{camera,lidar,fusion}/{vehicle,infra,
-coop}.
+coop} and CMT_Nuscenes/{camera,lidar,fusion}.
 """
 from __future__ import annotations
 
@@ -14,6 +15,17 @@ from typing import Any, Dict, Tuple
 
 TUMTRAF_CLASSES = (
     "CAR", "TRAILER", "TRUCK", "VAN", "PEDESTRIAN", "BUS", "BICYCLE")
+NUSCENES_CLASSES = (
+    "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+    "motorcycle", "bicycle", "pedestrian", "traffic_cone")
+NUSCENES_TASKS = (
+    ("car",), ("truck", "construction_vehicle"), ("bus", "trailer"),
+    ("barrier",), ("motorcycle", "bicycle"), ("pedestrian", "traffic_cone"))
+# the decode's post-centre range (x, y, z low, then high; m) by dataset: the
+# nuScenes configs' `post_center_range` (CMT_Nuscenes/fusion/
+# cmt_voxel0075_vov_1600x640_cbgs.py), else the TUMTraf configs' +-80 m
+POST_CENTER_RANGES = {"nuscenes": (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)}
+DEFAULT_POST_CENTER_RANGE = (-80.0, -80.0, -10.0, 80.0, 80.0, 10.0)
 
 
 @dataclasses.dataclass
@@ -117,6 +129,28 @@ def tumtraf_preset(domain: str, modality: str, **over) -> Preset:
     return Preset(**base)
 
 
+def nuscenes_preset(modality: str, **over) -> Preset:
+    """Original CMT nuScenes presets (CMT_Nuscenes configs): pc
+    [-54..54]x[-5..3] @ voxel 0.075 -> grid 1440x1440x40, 6 cams."""
+    base = dict(
+        name=f"cmt_{modality}_nuscenes",
+        domain="vehicle", modality=modality,
+        class_names=NUSCENES_CLASSES, tasks=NUSCENES_TASKS,
+        pc_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
+        voxel_size=(0.075, 0.075, 0.2), grid_size=(1440, 1440, 40),
+        num_views=6, img_size=(640, 1600),
+        dataset="nuscenes", ann_prefix="nuscenes_infos",
+    )
+    base.update(over)
+    return Preset(**base)
+
+
+def post_center_range(preset: Preset) -> Tuple[float, ...]:
+    """The range a decoded box's centre must lie in (`decode_boxes`
+    `post_center_range`), from the preset's dataset."""
+    return POST_CENTER_RANGES.get(preset.dataset, DEFAULT_POST_CENTER_RANGE)
+
+
 def tiny_preset(**over) -> Preset:
     """Miniature preset for smoke tests -- not a reference config."""
     base = dict(
@@ -143,6 +177,16 @@ PRESETS: Dict[str, Preset] = {
     p.name: p for p in [tumtraf_preset(dom, mod)
                         for dom in ("vehicle", "infrastructure", "coop")
                         for mod in ("camera", "lidar", "fusion")]
+    + [nuscenes_preset(mod) for mod in ("camera", "lidar", "fusion")]
+    # the reference's 4th nuScenes config, CMT_Nuscenes/fusion/
+    # cmt_voxel0100_r50_800x320_cbgs.py: sparse_shape [41, 1024, 1024], not
+    # ceil(108 / 0.1) = 1080, so the BEV map stays even through every
+    # stride; its ResNet-50 is not ported, so it raises at build
+    + [nuscenes_preset("fusion", name="cmt_fusion_r50_nuscenes",
+                       voxel_size=(0.1, 0.1, 0.2), grid_size=(1024, 1024, 40),
+                       img_size=(320, 800), ida_resize_lim=(0.47, 0.625),
+                       ida_final_dim=(320, 800), img_spec="r50",
+                       img_out_features=("layer3", "layer4"))]
     + [tiny_preset()]}
 
 # The small cooperative LiDAR detector of the port's parity checks (the CPU

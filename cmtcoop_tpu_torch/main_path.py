@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from cmtcoop_tpu_torch import _build
-from cmtcoop_tpu_torch.configs.presets import get_preset
+from cmtcoop_tpu_torch.configs.presets import get_preset, post_center_range
 from cmtcoop_tpu_torch.core.coder import decode_boxes
 from cmtcoop_tpu_torch.data.synthetic import coop_batch
 from cmtcoop_tpu_torch.models.build import build_detector, random_init_
@@ -50,6 +50,8 @@ PATH_KERNELS = {PRESET: _LIDAR,
 MAP_LAUNCHES = {PRESET: 14, FUSION_PRESET: 14, GATHER_PATH: 16,
                 TRAIN_PATH: 14}
 SEED = 0
+# the decode's post-centre range, one for every path (all are TUMTraf's)
+DECODE_RANGE = post_center_range(get_preset(FUSION_PRESET))
 MAX_VOXELS = 65536
 # per-level pillar caps, calibrated on the benchmark clouds
 PILLAR_CAPS = (38400, 40960, 24064, 11264)
@@ -91,11 +93,13 @@ def build_main_path(
 
 def frame(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
     """One frame: the forward and the top-300 decode of the last decoder
-    layer, synchronised. Returns (task_outs, decoded)."""
+    layer inside `DECODE_RANGE`, synchronised. Returns (task_outs,
+    decoded)."""
     task_outs, _ = model(batch)
     t = task_outs[0]
     codes = torch.cat([t[k][-1, 0] for k in CODES], -1)
-    dec = decode_boxes([t["cls_logits"][-1, 0]], [codes])
+    dec = decode_boxes([t["cls_logits"][-1, 0]], [codes],
+                       post_center_range=DECODE_RANGE)
     if dec.scores.is_cuda:
         torch.cuda.synchronize()
     return task_outs, dec

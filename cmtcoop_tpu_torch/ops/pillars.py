@@ -219,7 +219,10 @@ def pillarize(points: torch.Tensor, point_mask: torch.Tensor, *,
         first = torch.ones(1, dtype=torch.bool, device=dev)
         bound = torch.cat([first, skey[1:] != skey[:-1]])
         head = bound & in_range
-        vrank = torch.cumsum(head.long(), 0) - 1
+        n_vox = torch.cumsum(head.long(), 0)
+        # occupied voxels before `max_voxels` (a count above it loses voxels)
+        count("voxels.raw", n_vox[-1])
+        vrank = n_vox - 1
         idx = torch.arange(n, device=dev)
         run_start = torch.cummax(torch.where(bound, idx, -1), 0).values
         pos_in_run = idx - run_start

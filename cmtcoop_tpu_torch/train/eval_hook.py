@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from cmtcoop_tpu_torch.configs.presets import post_center_range
 from cmtcoop_tpu_torch.core.coder import decode_boxes
 from cmtcoop_tpu_torch.data import formats
 from cmtcoop_tpu_torch.data.loader import build_test_loader
@@ -79,14 +80,16 @@ def run_eval(model: torch.nn.Module, ds, preset, batch_size: int = 1,
 
     The tail batch is padded by repeating the last sample, so every batch
     has one shape (the reference iterates b=1, tools/test.py:200-214).
-    Returns (summary, preds by timestamp), preds None without
-    `collect_preds`."""
+    The decode keeps boxes inside the preset's post-centre range
+    (`presets.post_center_range`). Returns (summary, preds by timestamp),
+    preds None without `collect_preds`."""
     if forward is None:
         forward = make_eval_forward(model)
     device = next(model.parameters()).device
     preds = {}
     bs = max(1, batch_size)
     total = len(ds)
+    centre_range = post_center_range(preset)
     if max_samples:
         total = min(total, max_samples)
     for start in range(0, total, bs):
@@ -96,7 +99,8 @@ def run_eval(model: torch.nn.Module, ds, preset, batch_size: int = 1,
         logits, codes = forward(batch)
         for b, i in enumerate(idxs):
             dec = decode_boxes([lg[b] for lg in logits],
-                               [c[b] for c in codes])
+                               [c[b] for c in codes],
+                               post_center_range=centre_range)
             ts = ds.infos[i]["timestamp"]
             preds[ts] = formats.decoded_to_eval_boxes(
                 dec, preset.class_names, ts)

@@ -97,3 +97,28 @@ def test_decode_boxes_score_threshold(rng):
     ref = jc.decode_boxes([jnp.asarray(logits[0])], [jnp.asarray(codes[0])],
                           30, score_threshold=0.5)
     np.testing.assert_array_equal(ours.valid.numpy(), np.asarray(ref.valid))
+
+
+def test_decode_boxes_keeps_the_range_it_is_given():
+    """A box centred 62 m out along x: the TUMTraf range (+-80 m, the
+    default) keeps it, nuScenes' (+-61.2 m) drops it, in both packages; a
+    preset's range comes from its dataset."""
+    from cmtcoop_tpu_torch.configs.presets import (get_preset,
+                                                   post_center_range)
+    logits = np.array([[2.0], [1.0]], np.float32)
+    codes = np.zeros((2, 10), np.float32)
+    codes[0, 0], codes[1, 0] = 62.0, 30.0
+    nusc = post_center_range(get_preset("cmt_fusion_nuscenes"))
+    assert nusc == (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
+    assert post_center_range(get_preset("cmt_fusion_coop_tumtraf")) == (
+        -80.0, -80.0, -10.0, 80.0, 80.0, 10.0)
+    for kwargs, want in (({}, [True, True]),
+                         (dict(post_center_range=nusc), [False, True])):
+        ours = tc.decode_boxes([torch.from_numpy(logits)],
+                               [torch.from_numpy(codes)], 2, **kwargs)
+        ref = jc.decode_boxes([jnp.asarray(logits)], [jnp.asarray(codes)],
+                              2, **kwargs)
+        assert ours.valid.tolist() == want
+        np.testing.assert_array_equal(ours.valid.numpy(),
+                                      np.asarray(ref.valid))
+        _close(ours.boxes[:, 0], [62.0, 30.0])

@@ -173,3 +173,34 @@ def test_pillar_counts_are_the_uncapped_counts():
         caps[k] = min(full[k]) - 3
         got = levels(tuple(caps))
         assert got[k] == full[k] and min(got[k]) > caps[k]
+
+
+def test_voxel_count_is_the_uncapped_count():
+    """`voxels.raw` holds each cloud's occupied voxels before `max_voxels`
+    (the pillarize telemetry's `n_voxels_raw`): with the cap below a
+    cloud's count the reading stays the count, above the cap, and nothing
+    is counted while no profiler records."""
+    batch = {k: torch.from_numpy(v) for k, v in small_coop_batch().items()}
+    pts, mask = batch["vehicle_points"][0], batch["vehicle_points_mask"][0]
+
+    def counted(max_voxels):
+        ek = dict(SMALL_COOP_EXTRACTOR, max_voxels=max_voxels)
+        model = build_detector(tiny_preset(**SMALL_COOP_PRESET),
+                               extractor_kwargs=ek,
+                               head_kwargs=SMALL_COOP_HEAD)
+        random_init_(model, torch.Generator().manual_seed(2))
+        profiling.reset()
+        with torch.inference_mode():
+            model(batch)
+            assert profiling.traced_values("voxels.raw") == []
+            with _profile():
+                model(batch)
+        stats = model.vehicle_model.pillarize(pts, mask,
+                                              return_stats=True)[-1]
+        return profiling.traced_values("voxels.raw"), stats
+
+    full, stats = counted(4096)
+    assert len(full) == 2 and full[0] == int(stats["n_voxels_raw"]) > 8
+    capped, stats = counted(full[0] - 5)
+    assert capped == full
+    assert int(stats["n_voxels_dropped"]) == 5
