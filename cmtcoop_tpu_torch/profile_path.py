@@ -5,7 +5,6 @@
     python -m cmtcoop_tpu_torch.profile_path --preset cmt_lidar_coop_tumtraf \
         --encoder gather [--out DIR]
     python -m cmtcoop_tpu_torch.profile_path --train [--out DIR]
-    python -m cmtcoop_tpu_torch.profile_path --root build/parent [...]
 
 Builds the full-width main path of `--preset` (main_path.py `PATHS`; the
 flagship `cmt_fusion_coop_tumtraf` by default), runs two frames to warm up
@@ -19,10 +18,7 @@ set of the encoder, kernel 9) and `sparse convs` (its gather convs and the
 densify); its `pillar encoder` span keeps what these leave. On the pillar
 encoder, `pillar maps` holds its calls of `pillar_neighbor_map` and
 `pillar_conv_neighbor_map` (kernel 9; the downsample grids stay in `pillar
-encoder`). `--root` traces the package of another checkout (e.g. the
-parent commit unpacked with `git archive` into `build/`), read by this
-module's counts from that package's own spans. With `--train`
-it builds the full-width train step
+encoder`). With `--train` it builds the full-width train step
 (main_path.py `build_train_path`), runs one step to warm up and traces one
 step: the frame is then the step, and the stages add `forward` (what no
 finer forward stage holds), `loss + Hungarian`, `backward` (the checkpoint
@@ -61,10 +57,8 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import importlib
 import json
 import subprocess
-import sys
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -183,16 +177,6 @@ def summarize(trace: dict, n_frames: int, stage_names=STAGES) -> dict:
                           or "fwd_tc::" in k})
 
 
-def _checkout_main_path(root: str):
-    """`main_path` of the checkout at `root`: its package imported in place
-    of this one's (this module keeps running from here)."""
-    for name in [m for m in sys.modules
-                 if m.split(".")[0] == "cmtcoop_tpu_torch" and m != __name__]:
-        del sys.modules[name]
-    sys.path.insert(0, str(Path(root).resolve()))
-    return importlib.import_module("cmtcoop_tpu_torch.main_path")
-
-
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,9 +193,6 @@ def main(argv=None) -> dict:
                         help="the LiDAR preset's sparse encoder")
     parser.add_argument("--train", action="store_true",
                         help="trace one full-width train step instead")
-    parser.add_argument("--root", help="trace the package of the checkout "
-                        "at ROOT (e.g. the parent commit) instead of this "
-                        "one")
     parser.add_argument("--out", default=str(
         Path(__file__).resolve().parents[1] / "build" / "profile"))
     args = parser.parse_args(argv)
@@ -223,12 +204,11 @@ def main(argv=None) -> dict:
         path = main_path.GATHER_PATH
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: needs a CUDA device")
-    mp = _checkout_main_path(args.root) if args.root else main_path
     dev = torch.device("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     if args.train:
-        _, batch, _, step = mp.build_train_path(dev)
+        _, batch, _, step = main_path.build_train_path(dev)
         n, stage_names = 1, STAGES + TRAIN_STAGES
         step(batch)  # warm-up: the build, first launches
         torch.cuda.synchronize()
@@ -242,19 +222,19 @@ def main(argv=None) -> dict:
                 step(batch)
                 torch.cuda.synchronize()
     else:
-        model, batch = mp.build_main_path(dev, path)
+        model, batch = main_path.build_main_path(dev, path)
         n, stage_names = N_FRAMES, STAGES + GATHER_STAGES
         with torch.inference_mode():
             for _ in range(2):  # warm-up: the build, launches, graphs
-                mp.frame(model, batch)
+                main_path.frame(model, batch)
             t0 = time.perf_counter()
             for _ in range(n):
-                mp.frame(model, batch)
+                main_path.frame(model, batch)
             untraced_ms = (time.perf_counter() - t0) * 1e3 / n
             with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(n):
                     with torch.profiler.record_function("frame"):
-                        mp.frame(model, batch)
+                        main_path.frame(model, batch)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     trace_path = out / "trace.json"
@@ -262,7 +242,6 @@ def main(argv=None) -> dict:
     summary = summarize(json.loads(trace_path.read_text()), n, stage_names)
     summary["preset"] = main_path.TRAIN_PATH if args.train else path
     summary["untraced_frame_ms"] = untraced_ms
-    summary["root"] = str(Path(mp.__file__).resolve().parents[1])
     if args.train:
         summary["traced_peak_memory_gib"] = (
             torch.cuda.max_memory_allocated() / 2 ** 30)

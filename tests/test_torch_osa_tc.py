@@ -9,8 +9,8 @@ surrounds the kernel, which runs only on the card.
 - `osa_agg_plan` at every shape the fusion path launches: the grid covers
   every pixel of every view and every Cout column once, the K steps every
   channel of every part once, and narrower tiles are taken where 128 x 256
-  tiles leave the card under a wave: the tiles chip_smoke's sweep measured
-  fastest;
+  tiles leave the card under a wave: the tiles a timing sweep on the card
+  found fastest;
 - the bf16 shape check (channel counts multiples of 8);
 - the packed operands an eval OSA block holds (`AggPack`), rebuilt when
   the weights or the dtype change.

@@ -15,10 +15,8 @@ card.
   when a weight or BN tensor changes;
 - the active rows compacted once per occupancy level in the eval encoder,
   equal to those of each conv's own occupancy;
-- the bf16 shape check;
-- the per-checkout timing script's launch weights and trace reading.
+- the bf16 shape check.
 """
-import json
 
 import numpy as np
 import pytest
@@ -345,28 +343,3 @@ def test_eval_encoder_shares_rows_per_level(rng, monkeypatch):
                          occ, active_rows(occ))
     torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert got.shape == (4, 4, 32 * 2)
-
-
-def test_time_pillar_convs_weights_the_encoders_launches(tmp_path):
-    """The per-checkout timing script: its 13 convs weigh to the encoder's
-    21 launches an agent, and a trace's kernel time counts the pillar-conv
-    kernels of either checkout (the CUDA-core kernel's name and the wgmma
-    one's), not the occupancy fold or other kernels; an empty trace
-    raises."""
-    from cmtcoop_tpu_torch import time_pillar_convs as tpc
-    assert sum(tpc._launches(c[0]) for c in tpc.CONVS) == 21
-    trace = tmp_path / "trace.json"
-    events = [
-        dict(ph="X", cat="kernel", dur=5.0,
-             name="void pillar_tc::pillar_conv_tc_kernel<64, 9>(...)"),
-        dict(ph="X", cat="kernel", dur=7.0,
-             name="void pillar_conv_kernel<__nv_bfloat16, 9>(...)"),
-        dict(ph="X", cat="kernel", dur=3.0, name="pillar_occ_fold_kernel"),
-        dict(ph="X", cat="cuda_runtime", dur=2.0,
-             name="pillar_conv_tc_kernel launch"),
-    ]
-    trace.write_text(json.dumps(dict(traceEvents=events)))
-    assert tpc._kernel_us(trace) == 12.0
-    trace.write_text(json.dumps(dict(traceEvents=events[2:])))
-    with pytest.raises(SystemExit, match="no pillar-conv kernel"):
-        tpc._kernel_us(trace)
