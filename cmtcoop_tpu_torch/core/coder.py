@@ -2,6 +2,9 @@
 
 Static flat top-`max_num` over (query x class) of the sigmoid scores, a
 validity mask from the post-center range, and the z shift to the box bottom.
+The decode's constants are cached per values, dtype and device
+(`utils/constants.py`), so it neither copies from the host nor waits for the
+card: its kernels queue behind the forward's.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch
 
 from cmtcoop_tpu_torch.core.boxes import (denormalize_bbox,
                                           gravity_to_bottom_center)
+from cmtcoop_tpu_torch.utils.constants import constant
 from cmtcoop_tpu_torch.utils.profiling import span
 
 
@@ -41,7 +45,7 @@ def decode_boxes(
     class_task = []
     for t, lg in enumerate(task_logits):
         class_task.extend([t] * lg.shape[-1])
-    class_task_arr = torch.tensor(class_task, dtype=torch.long, device=device)
+    class_task_arr = constant(class_task, torch.long, device)
     total_classes = all_logits.shape[-1]
 
     scores_flat = torch.sigmoid(all_logits.float()).reshape(-1)
@@ -52,7 +56,7 @@ def decode_boxes(
     codes = all_codes[class_task_arr[labels] * num_query + query_idx]
 
     boxes = denormalize_bbox(codes)
-    rng = torch.tensor(post_center_range, dtype=boxes.dtype, device=device)
+    rng = constant(post_center_range, boxes.dtype, device)
     valid = (boxes[..., :3] >= rng[:3]).all(-1) & \
         (boxes[..., :3] <= rng[3:]).all(-1)
     if score_threshold is not None:

@@ -29,6 +29,7 @@ from cmtcoop_tpu_torch.core.coder import decode_boxes
 from cmtcoop_tpu_torch.data import formats
 from cmtcoop_tpu_torch.data.loader import build_test_loader
 from cmtcoop_tpu_torch.models.build import build_detector
+from cmtcoop_tpu_torch.utils import staging
 from cmtcoop_tpu_torch.utils.profiling import count, span
 
 CODES = ("center", "height", "dim", "rot", "vel")
@@ -52,9 +53,14 @@ def make_eval_forward(model: torch.nn.Module):
 @span("eval.to_device")
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                              torch.Tensor]:
-    """A numpy batch -> tensors on `device` (non-blocking copies). Counts
-    the bytes copied from the host to another device (`h2d.bytes`), and
-    those of them from pageable memory (`h2d.pageable_bytes`)."""
+    """A numpy batch -> tensors on `device`. To a CUDA device each host
+    array goes through the pinned ring of `utils/staging.py`: when this
+    returns, every copy is enqueued on the current stream, each tensor is
+    ready in that stream's order, and the host arrays may be overwritten.
+    Other devices take `Tensor.to` (non-blocking). Counts the bytes copied
+    from the host to another device (`h2d.bytes`), and those of them that
+    the DMA reads from pageable memory (`h2d.pageable_bytes`, 0 on the
+    staged path)."""
     device = torch.device(device)
     out, nbytes, pageable = {}, 0, 0
     for k, v in batch.items():
@@ -62,6 +68,9 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
         if t.device.type == "cpu" and device.type != "cpu":
             n = t.numel() * t.element_size()
             nbytes += n
+            if device.type == "cuda":
+                out[k] = staging.upload(t, device)
+                continue
             if not t.is_pinned():
                 pageable += n
         out[k] = t.to(device, non_blocking=True)
