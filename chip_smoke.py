@@ -36,17 +36,21 @@ Phases, each raising on failure (the script then exits non-zero):
      its own caps; main_path.py `NUSC_PATH`) on a 300000-row ten-sweep
      cloud (main_path.py `single_batch`), whose pillar convs (kernels 1 and
      2) and neighbour maps (kernel 9) are first checked on that cloud as
-     phase 3 checks the coop clouds'. Per path: zero pillar and voxel cap
-     drops at every level (on the gather path zero voxel drops and no
+     phase 3 checks the coop clouds'; then its real-time variant
+     `cmt_fusion_r50_nuscenes` (ResNet-50 on six 320x800 views, 0.1-m
+     voxels on a 1024 x 1024 grid; main_path.py `R50_PATH`) on the same
+     cloud, its kernels 1, 2 and 9 checked on its own grid first. Per
+     path: zero pillar and voxel cap drops at every level (on the gather path zero voxel drops and no
      downsample with more output sites than its stage cap); an eager frame
      of forward and top-300 decode, whose BEV maps (and CPFPN outputs) and
      decoder outputs must be finite; the frame that captures the path's
      CUDA graphs; and a replayed frame (eager on the gather path), its
-     launches counted from zero: the memory token counts (32400 BEV tokens
-     an agent plus 4000 a camera view), the launch count of every kernel
-     of the path above zero and of every other kernel zero, kernel 9 one
-     launch a map; the capture and replay frames each held to the eager
-     frame. The shapes the replayed frame launched each kernel at are
+     launches counted from zero: the memory token counts (a BEV token a
+     cell of the grid over the head's downsample scale, 32400 at 1440^2,
+     plus a token a stride-16 cell of each view, 4000 at 640x1600), the
+     launch count of every kernel of the path above zero and of every
+     other kernel zero, kernel 9 one launch a map; the capture and
+     replay frames each held to the eager frame. The shapes the replayed frame launched each kernel at are
      printed; kernels 3, 4 and 6 are then checked, in bfloat16 and
      float32, at every one of them that no earlier path launched, and every
      shape the path launched kernels 1, 2 and 9 at must be one already
@@ -914,9 +918,15 @@ def run_path(path, model, batch):
             torch.isfinite(dec.boxes).all()):
         raise AssertionError(f"{path}: decode did not give 300 finite "
                              "slots")
-    # per agent: 32400 BEV tokens, plus 4000 per 640x1600 camera view
-    want = [32400 + (4000 * batch[p + "imgs"].shape[1] if ext.use_camera
-                     else 0) for p, ext, _ in exts]
+    # per agent: a BEV token a cell of the grid / downsample_scale (32400
+    # at 1440^2), plus a token a stride-16 cell of each camera view (4000
+    # at 640x1600)
+    gx, gy = head.grid_size
+    bev = (gx // head.downsample_scale) * (gy // head.downsample_scale)
+    want = [bev + (batch[p + "imgs"].shape[1] * (batch[p + "imgs"].shape[2]
+                                                 // 16)
+                   * (batch[p + "imgs"].shape[3] // 16) if ext.use_camera
+                   else 0) for p, ext, _ in exts]
     if memory_len != want:
         raise AssertionError(f"{path}: memory lengths {memory_len}, "
                              f"expected {want}")
@@ -1591,6 +1601,15 @@ def main():
     torch.cuda.empty_cache()
     # the nuScenes detector: kernels 1, 2 and 9 on its own cloud first
     path = main_path.NUSC_PATH
+    model, batch = main_path.build_main_path(dev, path)
+    with torch.inference_mode():
+        pillar_kernel_phases(telemetry(model, batch), results, dev)
+        neighbor_map_phases(pillar_map_calls(model, batch), results)
+    path_phase(path, model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+    # its real-time variant (ResNet-50, 320x800 views, a 1024^2 grid)
+    path = main_path.R50_PATH
     model, batch = main_path.build_main_path(dev, path)
     with torch.inference_mode():
         pillar_kernel_phases(telemetry(model, batch), results, dev)

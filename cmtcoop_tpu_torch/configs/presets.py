@@ -181,7 +181,7 @@ PRESETS: Dict[str, Preset] = {
     # the reference's 4th nuScenes config, CMT_Nuscenes/fusion/
     # cmt_voxel0100_r50_800x320_cbgs.py: sparse_shape [41, 1024, 1024], not
     # ceil(108 / 0.1) = 1080, so the BEV map stays even through every
-    # stride; its ResNet-50 is not ported, so it raises at build
+    # stride; its camera branch is ResNet-50 + CPFPN over layer3 and layer4
     + [nuscenes_preset("fusion", name="cmt_fusion_r50_nuscenes",
                        voxel_size=(0.1, 0.1, 0.2), grid_size=(1024, 1024, 40),
                        img_size=(320, 800), ida_resize_lim=(0.47, 0.625),

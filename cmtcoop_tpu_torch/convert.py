@@ -6,7 +6,8 @@ or fusion; eval modules) as numpy arrays and returns the reference-layout
 state_dict that this package's detector loads with
 `load_state_dict(strict=True)`. It is the inverse of
 `cmtcoop_tpu/train/torch_convert.py::convert_state_dict` on every module of
-the eval path (VoVNet, CPFPN, the pillar encoder, SECOND/FPN, the head):
+the eval path (VoVNet, ResNet, CPFPN, the pillar encoder, SECOND/FPN, the
+head):
 
   Conv2d            (kh, kw, I, O)            -> (O, I, kh, kw)
   ConvTranspose2d   (kh, kw, I, O), flipped   -> (I, O, kh, kw)
@@ -106,6 +107,22 @@ def _vovnet(out: _Out, key: str, p: Mapping, s: Mapping) -> None:
         out.put(f"{mod}.ese.fc.bias", bp["ese"]["fc"]["bias"])
 
 
+def _resnet(out: _Out, key: str, p: Mapping, s: Mapping) -> None:
+    """flax `ResNet` -> mmdet's `conv1`/`bn1`,
+    `layer{s}.{b}.{conv,bn}{1,2,3}`, `layer{s}.{b}.downsample.{0,1}`
+    keys."""
+    out.conv_bn(f"{key}.conv1.weight", f"{key}.bn1", p["stem"], s["stem"])
+    for st, b in _numbered(p, r"layer(\d+)_(\d+)"):
+        bp, bs = p[f"layer{st}_{b}"], s[f"layer{st}_{b}"]
+        mod = f"{key}.layer{st}.{b}"
+        for (i,) in _numbered(bp, r"conv(\d+)"):
+            out.conv_bn(f"{mod}.conv{i}.weight", f"{mod}.bn{i}",
+                        bp[f"conv{i}"], bs[f"conv{i}"])
+        if "downsample" in bp:
+            out.conv_bn(f"{mod}.downsample.0.weight", f"{mod}.downsample.1",
+                        bp["downsample"], bs["downsample"])
+
+
 def _cpfpn(out: _Out, key: str, p: Mapping) -> None:
     for (i,) in _numbered(p, r"lateral(\d+)"):
         out.put(f"{key}.lateral_convs.{i}.conv.weight",
@@ -117,8 +134,9 @@ def _cpfpn(out: _Out, key: str, p: Mapping) -> None:
 
 def _agent(out: _Out, pre: str, p: Mapping, s: Mapping) -> None:
     if "img_backbone" in p:
-        _vovnet(out, pre + "img_backbone", p["img_backbone"],
-                s["img_backbone"])
+        backbone = _resnet if "stem" in p["img_backbone"] else _vovnet
+        backbone(out, pre + "img_backbone", p["img_backbone"],
+                 s["img_backbone"])
         _cpfpn(out, pre + "img_neck", p["img_neck"])
     if "pts_middle_encoder" in p:
         _lidar(out, pre, p, s)

@@ -6,12 +6,14 @@ infrastructure cameras at 640x1600) in bfloat16,
 batch 1, with seeded random weights, on the JAX package's benchmark batch
 (two 65536-point ray-cast clouds, images kept for the camera branch); of
 the single-agent nuScenes detector `cmt_fusion_nuscenes` (`NUSC_PATH`: six
-640x1600 views, six task groups) on a 300000-row ten-sweep ray-cast cloud;
-one frame of any of them (forward + top-300 decode); and the train step of
-`cmt_fusion_coop_tumtraf` (DN with 128 GT slots, dropout 0.1, grid mask,
-clipped AdamW) on the same batch with its ground truth. chip_smoke.py and
-profile_path.py drive them; the overrides are those of the JAX `bench.py`
-and `tools/probe_train_step.py`.
+640x1600 views, six task groups) on a 300000-row ten-sweep ray-cast cloud,
+and of its real-time variant `cmt_fusion_r50_nuscenes` (`R50_PATH`:
+ResNet-50 on six 320x800 views, 0.1-m voxels on a 1024 x 1024 grid) on
+the same cloud; one frame of any of them (forward + top-300 decode); and
+the train step of `cmt_fusion_coop_tumtraf` (DN with 128 GT slots, dropout
+0.1, grid mask, clipped AdamW) on the same batch with its ground truth.
+chip_smoke.py and profile_path.py drive them; the overrides are those of
+the JAX `bench.py` and `tools/probe_train_step.py`.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ PATHS = (PRESET, FUSION_PRESET)
 GATHER_PATH = PRESET + " gather"
 TRAIN_PATH = FUSION_PRESET + " train"
 NUSC_PATH = "cmt_fusion_nuscenes"
+R50_PATH = "cmt_fusion_r50_nuscenes"
 # the kernels each path launches (kernel 5, the conv with a residual, and
 # kernel 10, the row-layout copy, are on no path: the OSA identity is added
 # after the eSE scale, and the port's pillar kernels take no fallback branch
@@ -45,6 +48,7 @@ _LIDAR = ("pillar_conv_kb9", "pillar_conv_kb1", "flash_attention_packed",
 PATH_KERNELS = {PRESET: _LIDAR,
                 FUSION_PRESET: _LIDAR + ("osa_aggregate",),
                 NUSC_PATH: _LIDAR + ("osa_aggregate",),
+                R50_PATH: _LIDAR,
                 GATHER_PATH: ("flash_attention_packed", "conv3x3_bn_relu",
                               "neighbor_map"),
                 TRAIN_PATH: ("flash_train_fwd", "flash_train_bwd_dq",
@@ -53,7 +57,7 @@ PATH_KERNELS = {PRESET: _LIDAR,
 # launch each: per agent 7 on the pillar encoder (a subm map a level and 3
 # down maps) and 8 on the gather one (4 subm maps, 3 down maps, conv_out's)
 MAP_LAUNCHES = {PRESET: 14, FUSION_PRESET: 14, GATHER_PATH: 16,
-                TRAIN_PATH: 14, NUSC_PATH: 7}
+                TRAIN_PATH: 14, NUSC_PATH: 7, R50_PATH: 7}
 SEED = 0
 MAX_VOXELS = 65536
 # per-level pillar caps, calibrated on the benchmark clouds
@@ -77,27 +81,36 @@ NUSC_POINTS = 300000
 NUSC_MAX_VOXELS = 160000
 NUSC_PILLAR_CAPS = (87040, 48640, 18688, 6144)
 NUSC_VIEWS = 6
+# `R50_PATH`'s images and pillar caps (those of
+# bench_torch/configs/cmt_fusion_r50_nuscenes.json; seed 0's cloud holds
+# 55088, 26680, 8551, 2997 cells on its grid)
+R50_IMG_HW = (320, 800)
+R50_PILLAR_CAPS = (61696, 35840, 13056, 4096)
 
 
 def build_main_path(
         device, preset: str = PRESET
 ) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
-    """(model, batch) on `device` for one of `PATHS`, `GATHER_PATH` or
-    `NUSC_PATH`: the full-width detector with weights from `SEED` and the
-    benchmark batch drawn from `SEED` (the points, and the images and
+    """(model, batch) on `device` for one of `PATHS`, `GATHER_PATH`,
+    `NUSC_PATH` or `R50_PATH`: the full-width detector with weights from
+    `SEED` and the benchmark batch drawn from `SEED` (the points, and the images and
     cameras when the preset has the camera branch)."""
     ek = dict(max_voxels=MAX_VOXELS, pillar_caps=PILLAR_CAPS)
     if preset == GATHER_PATH:
         preset = PRESET
         ek.update(encoder_impl="gather", sparse_stage_caps=SPARSE_CAPS)
-    if preset == NUSC_PATH:
-        ek = dict(max_voxels=NUSC_MAX_VOXELS, pillar_caps=NUSC_PILLAR_CAPS)
+    if preset in (NUSC_PATH, R50_PATH):
+        ek = dict(max_voxels=NUSC_MAX_VOXELS,
+                  pillar_caps=(R50_PILLAR_CAPS if preset == R50_PATH
+                               else NUSC_PILLAR_CAPS))
     p = get_preset(preset)
     model = build_detector(p, dtype=torch.bfloat16, extractor_kwargs=ek)
     random_init_(model, torch.Generator().manual_seed(SEED))
     model.to(device)
-    np_batch = (single_batch(NUSC_POINTS, NUSC_VIEWS, IMG_HW, SEED)
-                if preset == NUSC_PATH else
+    np_batch = (single_batch(NUSC_POINTS, NUSC_VIEWS,
+                             R50_IMG_HW if preset == R50_PATH else IMG_HW,
+                             SEED)
+                if preset in (NUSC_PATH, R50_PATH) else
                 coop_batch(1, N_POINTS, *VIEWS, IMG_HW, seed=SEED))
     keep = ("points",) + (CAMERA_KEYS if p.use_camera else ())
     batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()

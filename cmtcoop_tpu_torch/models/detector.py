@@ -10,9 +10,9 @@ before the backbone and the ground truth goes to the head (DN); `rngs`
 (CPU generators `.dn`, `.dropout`, `.gridmask`; see train/train_step.py)
 gives the step's random draws. In eval mode on the card with autograd off,
 each forward runs its LiDAR branches and its head as segments that CUDA
-graphs capture and replay (models/graphs.py; `graphable` says when); the
-camera branch, the head's kernel-4 calls and the decoder's kernel-3 calls
-stay on the host.
+graphs capture and replay (models/graphs.py; `graphable` says when), and
+a ResNet camera branch too; a VoVNet camera branch, the head's kernel-4
+calls and the decoder's kernel-3 calls stay on the host.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from cmtcoop_tpu_torch.models.cmt_head import AgentInputs, CmtHead
 from cmtcoop_tpu_torch.models.graphs import EAGER, Frame, FrameGraphs
 from cmtcoop_tpu_torch.models.grid_mask import grid_mask, grid_mask_draws
 from cmtcoop_tpu_torch.models.pillar_encoder import PillarSparseEncoder
+from cmtcoop_tpu_torch.models.resnet import ResNet
 from cmtcoop_tpu_torch.models.second import SECOND, SECONDFPN
 from cmtcoop_tpu_torch.models.sparse_encoder import SparseEncoder
 from cmtcoop_tpu_torch.models.vovnet import CPFPN, VoVNet
@@ -45,8 +46,9 @@ class FeatureExtractor(nn.Module):
     SECONDFPN, giving the (B, H/8, W/8, 512) BEV map (state
     `pts_middle_encoder.*`, the same keys for both encoders, `pts_backbone.*`,
     `pts_neck.*`).
-    Camera (`use_camera`): VoVNet -> CPFPN, level 0 (stride 16) per view
-    (state `img_backbone.*`, `img_neck.*`)."""
+    Camera (`use_camera`): VoVNet (`img_spec` "V-*") or ResNet ("r50")
+    -> CPFPN, level 0 (stride 16) per view (state `img_backbone.*`,
+    `img_neck.*`)."""
 
     def __init__(self, use_lidar: bool = True, use_camera: bool = False,
                  voxel_size: Tuple[float, float, float] = (0.1, 0.1, 0.2),
@@ -80,11 +82,15 @@ class FeatureExtractor(nn.Module):
         self.use_grid_mask = use_grid_mask
         self.compute_dtype = compute_dtype
         if use_camera:
-            if img_spec.startswith("r"):
-                raise NotImplementedError(
-                    f"the ResNet image backbone ({img_spec}) is not ported")
             self.img_out_features = tuple(img_out_features)
-            self.img_backbone = VoVNet(img_spec, self.img_out_features)
+            self.img_backbone = (
+                ResNet(int(img_spec[1:]), self.img_out_features)
+                if img_spec.startswith("r")
+                else VoVNet(img_spec, self.img_out_features))
+            # ResNet's camera runs as graph segments. VoVNet's stays on the
+            # host: the benchmark reads kernels 4 and 6 from their host
+            # calls, which a replay never makes; ResNet launches neither
+            self.camera_segments = isinstance(self.img_backbone, ResNet)
             self.img_neck = CPFPN(
                 [self.img_backbone.out_channels[k]
                  for k in self.img_out_features], neck_out_channels,
@@ -172,24 +178,30 @@ class FeatureExtractor(nn.Module):
     def _second(self, bevs):
         return self.pts_backbone(torch.stack(bevs))
 
-    def extract_img_feat(self, imgs, rngs=None) -> torch.Tensor:
+    def extract_img_feat(self, imgs, rngs=None,
+                         frame: Frame = EAGER) -> torch.Tensor:
         """(B, V, H, W, 3) images -> (B, V, H/16, W/16, C) CPFPN level 0;
-        grid-masked first in train mode."""
+        grid-masked first in train mode; the backbone and the neck each a
+        segment of `frame`."""
         b, v, h, w, c = imgs.shape
         x = imgs.reshape(b * v, h, w, c).to(self.compute_dtype).contiguous()
         if self.training and self.use_grid_mask:
             x = grid_mask(x, grid_mask_draws(
                 rngs.gridmask if rngs else None, h, w))
         with span("image backbone"):
-            feats = self.img_backbone(x)
+            feats = frame(self.img_backbone, x)
         with span("image neck"):
-            f0 = self.img_neck([feats[k] for k in self.img_out_features])[0]
+            f0 = frame(self._neck, feats)
         return f0.reshape(b, v, *f0.shape[1:])
+
+    def _neck(self, feats):
+        return self.img_neck([feats[k] for k in self.img_out_features])[0]
 
     def extract(self, batch: Dict[str, torch.Tensor], prefix: str = "",
                 rngs=None, frame: Frame = EAGER) -> AgentInputs:
         """One agent's head inputs; the LiDAR branch as `frame`'s segments,
-        the camera branch on the host."""
+        the camera branch too where `camera_segments`, else on the
+        host."""
         bev_feat = img_feats = pad_hw = None
         if self.use_lidar:
             bev_feat = self.extract_pts_feat(batch[prefix + "points"],
@@ -198,7 +210,8 @@ class FeatureExtractor(nn.Module):
         if self.use_camera:
             imgs = batch[prefix + "imgs"]
             pad_hw = (imgs.shape[2], imgs.shape[3])
-            img_feats = self.extract_img_feat(imgs, rngs)
+            img_feats = self.extract_img_feat(
+                imgs, rngs, frame if self.camera_segments else EAGER)
         return AgentInputs(bev_feat, img_feats,
                            batch.get(prefix + "lidar2img"),
                            batch.get(prefix + "img2lidar"), pad_hw)
@@ -226,6 +239,9 @@ def _frame(model: nn.Module, extractors: Sequence[FeatureExtractor],
     on_card = bool(tensors) and all(t.is_cuda for t in tensors)
     modules = [m for e in extractors if e.use_lidar
                for m in (e.pts_middle_encoder, e.pts_backbone, e.pts_neck)]
+    modules += [m for e in extractors
+                if e.use_camera and e.camera_segments
+                for m in (e.img_backbone, e.img_neck)]
     return model.graphs.frame(batch, modules + [head],
                               on_card and graphable(model, extractors))
 

@@ -165,6 +165,23 @@ class PillarConvPack:
         return self.packed
 
 
+class ModulePack:
+    """What `make()` packs for eval from the source tensors it is given,
+    held by their module and rebuilt as `ConvPack`'s (`_pack_key` of the
+    dtype and the sources): one key check for a block of convs."""
+
+    def __init__(self):
+        self.key, self.packed = None, None
+
+    def __call__(self, dtype, make, *sources: torch.Tensor):
+        key = _pack_key(dtype, *sources)
+        if key != self.key:
+            with torch.no_grad():
+                self.packed = make()
+            self.key = key
+        return self.packed
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in `compute_dtype` (input and weights cast)."""
 

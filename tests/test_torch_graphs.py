@@ -5,10 +5,12 @@ On the CPU: the cached constants (utils/constants.py) follow the device
 and dtype and give voxel coords and the head's RV maths bit-equal to the
 `torch.tensor` constants they replace; every path that cannot replay (the
 CPU, train mode, the gather encoder) counts its segments as `graph.eager`
-and none as `graph.replayed`; the graph cache's keys follow the weights.
+and none as `graph.replayed`; a ResNet camera branch adds two segments an
+agent; the graph cache's keys follow the weights.
 
 On the card (marker `cuda`, the small fusion detector in float32): replays
-against eager frames on two different frames, after in-place weight copies
+against eager frames on two different frames (also with a ResNet-50
+camera branch, which replays too), after in-place weight copies
 and `load_state_dict`, at a new batch shape; a replayed frame under
 `set_sync_debug_mode("error")`; kernel 3 still called on the host, once a
 decoder layer and agent, and the head's kernel 4 once an agent. Run
@@ -40,6 +42,8 @@ from cmtcoop_tpu_torch.utils.constants import constant
 
 PRESET = tiny_preset(**SMALL_FUSION_PRESET)
 COUNTERS = ("graph.replayed", "graph.eager")
+# the same detector with a ResNet-50 camera branch, which runs as segments
+R50 = dict(img_spec="r50", img_out_features=("layer3", "layer4"))
 
 
 def fusion_model(seed: int = 2, **extractor):
@@ -135,6 +139,18 @@ def test_paths_that_cannot_replay_count_eager_segments():
                                       gather.infrastructure_model])
         _, (replayed, eager) = counted(lambda: gather(batch))
     assert replayed == 0 and eager > 0
+
+
+def test_a_resnet_camera_runs_as_segments():
+    """A ResNet camera branch is two segments an agent (its backbone and
+    its neck), a VoVNet one none (it stays on the host); on the CPU both
+    run eager."""
+    batch = tensors(small_fusion_batch())
+    with torch.no_grad():
+        _, (_, vovnet_n) = counted(lambda: fusion_model()(batch))
+        _, (replayed, resnet_n) = counted(
+            lambda: fusion_model(**R50)(batch))
+    assert replayed == 0 and resnet_n == vovnet_n + 2 * 2
 
 
 def test_eval_segments_equal_the_decoder_forward():
@@ -251,9 +267,10 @@ def assert_same(got, ref, tol=1e-4):
 
 
 @pytest.mark.cuda
-def test_replay_follows_each_frame():
+@pytest.mark.parametrize("backbone", [{}, R50], ids=["vovnet", "resnet"])
+def test_replay_follows_each_frame(backbone):
     dev = card()
-    model = fusion_model().to(dev)
+    model = fusion_model(**backbone).to(dev)
     a, b = two_frames(dev)
     ref_a, ref_b = eager(model, a), eager(model, b)
     assert not torch.allclose(ref_a[0]["cls_logits"], ref_b[0]["cls_logits"])

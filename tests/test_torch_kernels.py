@@ -29,10 +29,11 @@ from cmtcoop_tpu_torch.configs.presets import (SMALL_COOP_EXTRACTOR,
                                                SMALL_GATHER_EXTRACTOR,
                                                SMALL_FUSION_HEAD,
                                                SMALL_FUSION_PRESET,
-                                               tiny_preset)
+                                               get_preset, tiny_preset)
 from cmtcoop_tpu_torch.data.synthetic import (small_coop_batch,
                                               small_fusion_batch)
 from cmtcoop_tpu_torch.models.build import build_detector, random_init_
+from cmtcoop_tpu_torch.models.resnet import ResNet
 from cmtcoop_tpu_torch.ops import pillars as pu
 from cmtcoop_tpu_torch.ops.attention import (
     NEG_INF, flash_attention_bwd, flash_attention_bwd_reference,
@@ -84,6 +85,11 @@ def fusion_slice_model():
     return build_detector(tiny_preset(**SMALL_FUSION_PRESET),
                           extractor_kwargs=SMALL_FUSION_EXTRACTOR,
                           head_kwargs=SMALL_FUSION_HEAD)
+
+
+# ResNet-50's bf16 maps against the float32 plain path: they read 1.03%
+# (layer3) and 0.90% (layer4) of the largest magnitude on the card
+RESNET_BF16_TOL = 3e-2
 
 
 def cuda_device():
@@ -514,7 +520,10 @@ def test_single_agent_detector_equals_coop_vehicle_only():
 
 def test_detector_settings_without_effect_and_the_resnet_backbone():
     """`use_grid_mask` (training only) and `img_impl` (a TPU layout switch)
-    are accepted and change nothing; a ResNet `img_spec` is refused."""
+    are accepted and change nothing; a ResNet `img_spec` builds ResNet-50
+    + CPFPN over layer3 and layer4, and its detector loads another's
+    state_dict strictly (the full `cmt_fusion_r50_nuscenes` built on the
+    meta device, the small coop detector with that backbone filled)."""
     ref = fusion_slice_model()
     random_init_(ref, torch.Generator().manual_seed(3))
     other = build_detector(tiny_preset(**SMALL_FUSION_PRESET),
@@ -528,11 +537,30 @@ def test_detector_settings_without_effect_and_the_resnet_backbone():
         for o, r in zip(other(b)[0], ref(b)[0]):
             for key in r:
                 torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        build_detector(tiny_preset(**SMALL_FUSION_PRESET),
-                       extractor_kwargs=dict(SMALL_FUSION_EXTRACTOR,
-                                             img_spec="r50"),
-                       head_kwargs=SMALL_FUSION_HEAD)
+    with torch.device("meta"):
+        full = build_detector(get_preset("cmt_fusion_r50_nuscenes"),
+                              dtype=torch.bfloat16)
+    assert isinstance(full.img_backbone, ResNet)
+    assert [tuple(m.conv.weight.shape) for m in
+            full.img_neck.lateral_convs] == [(256, 1024, 1, 1),
+                                             (256, 2048, 1, 1)]
+    assert full.grid_size == (1024, 1024, 40)
+    r50 = dict(SMALL_FUSION_EXTRACTOR, img_spec="r50",
+               img_out_features=("layer3", "layer4"))
+    src, dst = (build_detector(tiny_preset(**SMALL_FUSION_PRESET),
+                               extractor_kwargs=r50,
+                               head_kwargs=SMALL_FUSION_HEAD)
+                for _ in range(2))
+    random_init_(src, torch.Generator().manual_seed(4))
+    sd = src.state_dict()
+    assert "vehicle_model.img_backbone.layer4.2.conv3.weight" in sd
+    assert ("infrastructure_model.img_backbone.layer1.0.downsample.1."
+            "running_var") in sd
+    dst.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        for o, r in zip(dst(b)[0], src(b)[0]):
+            for key in r:
+                torch.testing.assert_close(o[key], r[key], rtol=0, atol=0)
 
 
 # ------------------------------- on the card -------------------------------
@@ -1440,3 +1468,33 @@ def test_gather_slice_on_card_matches_cpu():
     on the card against the plain versions on the CPU, float32."""
     _on_card_matches_cpu(gather_slice_model, small_coop_batch(),
                          main_path.PATH_KERNELS[main_path.GATHER_PATH])
+
+
+@pytest.mark.cuda
+def test_resnet50_bf16_at_six_320x800_views_matches_its_plain_path():
+    """The port's eval ResNet-50 at `cmt_fusion_r50_nuscenes`' shapes (six
+    320x800 views) in bf16, BN folded into fused cuDNN calls (no kernel-4
+    launch: cuDNN ran each of its 3x3 shapes faster), against the same
+    model's plain path (train mode: unfolded `F.conv2d`, frozen BN) in
+    float32 with TF32 off, on seeded weights: layer3 and layer4 within
+    RESNET_BF16_TOL of the plain map's largest magnitude (bf16 rounding of
+    every conv's operands and output through 53 convs and 16 residual
+    sums)."""
+    dev = cuda_device()
+    model = ResNet(50)
+    random_init_(model, torch.Generator().manual_seed(0))
+    model.to(dev).eval()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(6, 320, 800, 3, generator=gen).to(dev)
+    _build.reset_counts()
+    with torch.inference_mode():
+        got = model(x.bfloat16())
+        torch.cuda.synchronize()
+        launches = _build.launch_counts["conv3x3_bn_relu"]
+        model.train()
+        want = model(x)
+    assert launches == 0
+    assert got["layer3"].shape == (6, 20, 50, 1024)
+    assert got["layer4"].shape == (6, 10, 25, 2048)
+    for k in ("layer3", "layer4"):
+        _assert_rel(got[k], want[k], RESNET_BF16_TOL)
